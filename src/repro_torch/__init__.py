@@ -1,0 +1,21 @@
+"""repro_torch -- the HLL sketch engine on PyTorch and CUDA for Hopper.
+
+A port of the JAX package ``repro``, which stays beside it as the
+reference.  The layout mirrors ``repro`` one module per module
+(``repro_torch/sketch/hll.py`` <-> ``repro/sketch/hll.py``); the TPU's
+Pallas kernels become hand-written CUDA kernels in
+``repro_torch/kernels`` that build with nvcc at their first launch.
+Nothing here imports ``jax`` or ``repro``.
+"""
+
+from repro_torch.sketch import (  # noqa: F401
+    DEFAULT_PLAN,
+    ExecutionPlan,
+    HLLConfig,
+    HyperLogLog,
+    SketchBank,
+    estimate_many,
+    reference_plan,
+    update_many,
+    update_registers,
+)

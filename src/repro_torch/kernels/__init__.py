@@ -1,0 +1,45 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+One module per TPU kernel of the reference (``repro/kernels``):
+
+  hash_rank.hash_rank               <- hash_rank.py::hash_rank
+  hll_fused.hll_update_fused        <- hll_fused.py::hll_update_fused
+  bucket_fold.bucket_fold           <- bucket_fold.py::bucket_fold
+  bank_scatter.bank_scatter_max     <- bank_scatter.py::bank_scatter_max
+
+A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
+launches its kernel or raises.  Each wrapper counts its launches in a plain
+integer attribute, ``launches``.  Sources live in ``csrc/`` and build with
+nvcc at first launch (``_build.py``), so importing this package needs
+neither nvcc nor a card.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Callable, Dict
+
+# kernel name -> (module, wrapper) under repro_torch.kernels
+KERNELS = {
+    "hash_rank": ("hash_rank", "hash_rank"),
+    "hll_update_fused": ("hll_fused", "hll_update_fused"),
+    "bucket_fold": ("bucket_fold", "bucket_fold"),
+    "bank_scatter_max": ("bank_scatter", "bank_scatter_max"),
+}
+
+
+def wrappers() -> Dict[str, Callable]:
+    """{kernel name: its wrapper}; imports the kernel modules on first call."""
+    return {
+        name: getattr(importlib.import_module(f"repro_torch.kernels.{mod}"), fn)
+        for name, (mod, fn) in KERNELS.items()
+    }
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}

@@ -1,0 +1,147 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o <name>-<digest>.so csrc/<name>.cu
+
+into ``build/repro_torch_kernels/`` at the repo root.  The digest covers
+every source in ``csrc/`` and the flags, so an edited source builds anew
+and an unchanged one loads the library already there.  Nothing builds at
+import: a kernel's library builds at its first launch, and ``build_all``
+starts one nvcc per source at once.  The ptxas report (registers, shared
+memory, spills per kernel) is kept beside each library (``build_log``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("hash_rank", "hll_fused", "bucket_fold", "bank_scatter")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest()}.so"
+
+
+def build_log(name: str) -> str:
+    """The nvcc/ptxas report of ``name``'s last build."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Build every missing library, one nvcc per source, all at once.
+
+    Returns {name: seconds its nvcc ran} (0.0 for a library already built).
+    Raises RuntimeError with nvcc's output if any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs, seconds = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+            time.perf_counter(),
+        )
+    failed = []
+    for name, (proc, tmp, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out = library_path(name)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C launcher ``symbol`` of library ``lib``, building it if needed.
+
+    Every launcher returns the cudaError_t of its launch as an int.
+    """
+    key = (lib, symbol)
+    if key not in _FUNCS:
+        if lib not in _LIBS:
+            path = library_path(lib)
+            if not path.exists():
+                build_all([lib])
+            _LIBS[lib] = ctypes.CDLL(str(path))
+            _LIBS[lib].repro_error_string.argtypes = [ctypes.c_int]
+            _LIBS[lib].repro_error_string.restype = ctypes.c_char_p
+        fn = getattr(_LIBS[lib], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[key] = fn
+    return _FUNCS[key]
+
+
+def check(lib: str, error: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never runs)."""
+    if error != 0:
+        text = _LIBS[lib].repro_error_string(error).decode()
+        raise RuntimeError(f"{what}: CUDA error {error} ({text})")
+
+
+def require_cuda(*tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device all ``tensors`` lie on; raise otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors lie on several devices: {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type != "cuda":
+        raise ValueError(f"a CUDA kernel needs CUDA tensors, got {device}")
+    return device
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the pointer a launcher takes."""
+    return torch.cuda.current_stream(device).cuda_stream

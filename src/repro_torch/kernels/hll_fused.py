@@ -1,0 +1,86 @@
+"""hll_fused: hash, rank and register max of a whole stream in one launch.
+
+Replaces the TPU kernel ``repro/kernels/hll_fused.py::hll_update_fused``
+(``_fused_kernel``).  The CUDA source is ``csrc/hll_fused.cu``.
+
+The TPU kernel merges items by a one-hot compare-reduce over all m buckets
+(the TPU has no read-modify-write port) and so caps p at 12
+(``MAX_FUSED_P``).  On Hopper each block keeps its own uint8 register file
+in shared memory (m bytes, 64 KiB at p = 16), raises registers with a
+compare-and-swap on the containing 32-bit word (CUDA has no 8-bit
+atomicMax), and folds its file into the result once at the end with a
+per-byte max.  That covers p in [4, 16] and both hash widths.
+
+What bounds it on the H100: the 4 B per item of the stream (3.35 TB/s), or
+the tens of integer instructions of the 64-bit hash per item, whichever is
+larger; Zipf traffic that repeats a bucket adds CAS retries (time, never
+correctness: max is order-free), and every block's final fold moves m
+bytes through L2 atomics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.hash_rank import _check_items
+from repro_torch.sketch import hll
+from repro_torch.sketch.hll import HLLConfig
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_ulonglong, ctypes.c_void_p,
+]
+
+
+def _check(registers: torch.Tensor, items: torch.Tensor, n_valid: Optional[int], cfg: HLLConfig):
+    if registers.shape != (cfg.m,) or registers.dtype != hll.REGISTER_DTYPE:
+        raise ValueError(
+            f"registers must be ({cfg.m},) uint8, got {tuple(registers.shape)} {registers.dtype}"
+        )
+    items = _check_items(items)
+    n = items.numel() if n_valid is None else max(0, min(int(n_valid), items.numel()))
+    return items, n
+
+
+def hll_update_fused_plain(
+    registers: torch.Tensor, items: torch.Tensor, n_valid: Optional[int], cfg: HLLConfig
+) -> torch.Tensor:
+    """The plain PyTorch version: ``hll.update`` over the first n_valid items."""
+    items, n = _check(registers, items, n_valid, cfg)
+    return hll.update(registers, items[:n], cfg)
+
+
+def hll_update_fused(
+    registers: torch.Tensor,
+    items: torch.Tensor,
+    n_valid: Optional[int],
+    cfg: HLLConfig,
+) -> torch.Tensor:
+    """Aggregate a flat stream into a copy of (m,) uint8 registers.
+
+    Items at positions >= ``n_valid`` (None: every item) are no-ops.  A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel.
+    """
+    if registers.device.type == "cpu" and items.device.type == "cpu":
+        return hll_update_fused_plain(registers, items, n_valid, cfg)
+    items, n = _check(registers, items, n_valid, cfg)
+    device = _build.require_cuda(registers, items)
+    out = registers.clone(memory_format=torch.contiguous_format)
+    if n == 0:
+        return out
+    fn = _build.function("hll_fused", "hll_fused_launch", _ARGTYPES)
+    with torch.cuda.device(device):
+        err = fn(
+            out.data_ptr(), items.data_ptr(), n, cfg.p, cfg.hash_bits, cfg.seed,
+            _build.stream(device),
+        )
+    _build.check("hll_fused", err, "hll_update_fused")
+    hll_update_fused.launches += 1
+    return out
+
+
+hll_update_fused.launches = 0

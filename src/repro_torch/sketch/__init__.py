@@ -1,0 +1,77 @@
+"""repro_torch.sketch -- the public API of the HLL engine on PyTorch.
+
+The port of ``repro.sketch`` for the main path: single sketches and keyed
+``SketchBank``s, each ingested through an ``ExecutionPlan`` and finalized
+by the estimator registry.
+
+    from repro_torch.sketch import HyperLogLog, HLLConfig, ExecutionPlan
+
+    sk = HyperLogLog.empty(HLLConfig(p=16, hash_bits=64))   # on the card
+    sk = sk.update(items)                                   # "cuda" kernel
+    sk = sk.update(items, ExecutionPlan(backend="cuda_pipelined"))
+    est = sk.estimate()
+    blob = sk.to_bytes(); back = HyperLogLog.from_bytes(blob)
+
+    bank = SketchBank.empty(1024, HLLConfig())
+    bank = bank.update_many(keys, items)                    # hash + scatter kernels
+    ests = bank.estimate_many()
+
+Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.  Every
+plan gives bit-identical registers on the same stream (DESIGN.md §3).
+"""
+
+from repro_torch.sketch.hll import (  # noqa: F401
+    HLLConfig,
+    REGISTER_DTYPE,
+    alpha,
+    cardinality,
+    estimate,
+    estimate_device,
+    hash_index_rank,
+    init_registers,
+    merge,
+    standard_error,
+    update,
+)
+from repro_torch.sketch.estimators import (  # noqa: F401
+    DEFAULT_ESTIMATOR,
+    Estimator,
+    available_estimators,
+    estimate_from_histogram,
+    estimate_many,
+    get_estimator,
+    histogram_size,
+    register_estimator,
+    register_histogram,
+    validate_registers,
+)
+from repro_torch.sketch.plan import (  # noqa: F401
+    DEFAULT_PIPELINES,
+    DEFAULT_PLAN,
+    ExecutionPlan,
+    available_backends,
+    available_bank_backends,
+    example_plans,
+    get_backend,
+    get_bank_backend,
+    reference_plan,
+    register_backend,
+    register_bank_backend,
+)
+
+# importing backends registers the built-in "torch"/"cuda"/"cuda_pipelined"
+# entries; it must come after .plan (registry) and .hll (primitives).
+from repro_torch.sketch import backends  # noqa: F401  (registration side effect)
+from repro_torch.sketch.dispatch import update_registers  # noqa: F401
+from repro_torch.sketch.carrier import HyperLogLog  # noqa: F401
+from repro_torch.sketch.bank import (  # noqa: F401
+    SketchBank,
+    update_bank_registers,
+    update_many,
+)
+from repro_torch.sketch.setops import (  # noqa: F401
+    difference_estimate,
+    intersection_estimate,
+    jaccard_estimate,
+    union_estimate,
+)

@@ -1,0 +1,214 @@
+"""Aggregation backends behind the ExecutionPlan registry.
+
+Port of ``repro/sketch/backends.py`` for the main path.  Three backends
+ship on each of the two axes, all bit-identical on the same stream (the
+max-lattice makes slicing invisible -- DESIGN.md §6):
+
+  torch           eager PyTorch scatter-max; ``pipelines`` k slices the
+                  stream into k sub-sketches folded by max (Fig. 3)
+  cuda            the fused hand-written kernel (hash, rank, register max)
+  cuda_pipelined  k fused launches + the bucket-fold kernel
+
+Bank ingest (DESIGN.md §9): ``torch`` is one scatter-max over the flattened
+(key, bucket) cells; ``cuda`` and ``cuda_pipelined`` run the hash_rank
+kernel, then the bank_scatter kernel.
+
+The reference pads streams to its kernels' (rows, 128) tiles; the CUDA
+wrappers take flat streams of any length and mask their own ragged edge,
+so no padding happens here.  On CPU tensors every kernel wrapper runs its
+plain version, so every backend runs on both devices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.sketch import hll
+from repro_torch.sketch.hll import HLLConfig
+from repro_torch.sketch.plan import (
+    DEFAULT_PIPELINES,
+    ExecutionPlan,
+    register_backend,
+    register_bank_backend,
+)
+
+
+# The kernel modules import repro_torch.sketch.hll, so they load at the
+# first wrapper call rather than at import (as in the reference), which
+# also keeps this module free of any build step.
+def _kernels():
+    from repro_torch.kernels import bank_scatter, bucket_fold, hash_rank, hll_fused
+
+    return hash_rank, hll_fused, bucket_fold, bank_scatter
+
+
+# ----------------------------------------------------------------------------
+# torch backend (reference scatter path + lane-pipelined variant)
+# ----------------------------------------------------------------------------
+
+
+def update_pipelined(
+    registers: torch.Tensor,
+    items: torch.Tensor,
+    cfg: HLLConfig,
+    pipelines: int = DEFAULT_PIPELINES,
+) -> torch.Tensor:
+    """Fig. 3 on one device: slice the stream over k pipelines, fold with max.
+
+    Each pipeline's bucket ids are offset by its index * m so one
+    scatter-max builds every partial sketch; any length is accepted and the
+    result is bit-identical to the single-pipeline path.
+    """
+    flat = items.reshape(-1)
+    n = flat.shape[0]
+    if pipelines <= 1 or n == 0:
+        return hll.update(registers, flat, cfg)
+    idx, rank = hll.hash_index_rank(flat, cfg)
+    per = -(-n // pipelines)
+    lane = torch.arange(n, device=flat.device) // per
+    seg = lane * cfg.m + idx.to(torch.int64)
+    partial = torch.zeros(
+        (pipelines * cfg.m,), dtype=hll.REGISTER_DTYPE, device=registers.device
+    )
+    partial.scatter_reduce_(0, seg, rank.to(hll.REGISTER_DTYPE), "amax")
+    folded = torch.amax(partial.reshape(pipelines, cfg.m), dim=0)
+    return torch.maximum(registers, folded)
+
+
+# ----------------------------------------------------------------------------
+# kernel wrappers
+# ----------------------------------------------------------------------------
+
+
+def hash_rank(items: torch.Tensor, cfg: HLLConfig):
+    """Fused murmur3+rank of a flat item stream -> (idx, rank) int32 tensors."""
+    _hash, _, _, _ = _kernels()
+    return _hash.hash_rank(hll.as_items(items), cfg)
+
+
+def bucket_fold(partials: torch.Tensor) -> torch.Tensor:
+    """Fold (k, m) uint8 or int32 partial registers -> (m,) by max."""
+    _, _, _fold, _ = _kernels()
+    return _fold.bucket_fold(partials)
+
+
+def hll_update(
+    registers: torch.Tensor, items: torch.Tensor, cfg: HLLConfig
+) -> torch.Tensor:
+    """Fully-fused aggregation of a flat stream into (m,) uint8 registers."""
+    _, _fused, _, _ = _kernels()
+    return _fused.hll_update_fused(registers, hll.as_items(items), None, cfg)
+
+
+def pipelined_update(
+    registers: torch.Tensor,
+    items: torch.Tensor,
+    cfg: HLLConfig,
+    pipelines: int = DEFAULT_PIPELINES,
+) -> torch.Tensor:
+    """Paper Fig. 3 built from the kernels: k fused pipelines + fold kernel.
+
+    Slices the stream across ``pipelines`` sub-sketches, aggregates each
+    with the fused kernel, folds the partials with the bucket_fold kernel,
+    and merges into the running registers.
+    """
+    flat = hll.as_items(items)
+    per = -(-flat.shape[0] // pipelines)
+    zeros = torch.zeros_like(registers)
+    partials = torch.stack(
+        [hll_update(zeros, flat[k * per : (k + 1) * per], cfg) for k in range(pipelines)]
+    )
+    return torch.maximum(registers, bucket_fold(partials))
+
+
+# ----------------------------------------------------------------------------
+# registry entries: fn(registers, items, cfg, plan) -> registers
+# ----------------------------------------------------------------------------
+
+
+@register_backend("torch")
+def _torch_backend(registers, items, cfg: HLLConfig, plan: ExecutionPlan):
+    return update_pipelined(registers, items, cfg, plan.pipelines)
+
+
+@register_backend("cuda")
+def _cuda_backend(registers, items, cfg: HLLConfig, plan: ExecutionPlan):
+    # the fused kernel is one hardware pipeline; k>1 belongs to
+    # "cuda_pipelined", so `pipelines` is intentionally not consulted here.
+    return hll_update(registers, items, cfg)
+
+
+@register_backend("cuda_pipelined")
+def _cuda_pipelined_backend(registers, items, cfg: HLLConfig, plan: ExecutionPlan):
+    return pipelined_update(registers, items, cfg, plan.pipelines)
+
+
+# ----------------------------------------------------------------------------
+# SketchBank ingest paths (keyed scatter-max; DESIGN.md §9)
+# ----------------------------------------------------------------------------
+
+
+def _check_cell_space(registers: torch.Tensor) -> None:
+    # the reference's flattened segment ids are int32 (the TPU has no
+    # 64-bit datapath); the port keeps its limit so both packages accept
+    # the same banks
+    bank_rows, m = registers.shape
+    if bank_rows * m >= 1 << 31:
+        raise ValueError(
+            f"bank cell space B*m = {bank_rows}*{m} overflows int32 segment "
+            f"ids; split the fleet across multiple banks or mesh shards"
+        )
+
+
+def bank_update_torch(
+    registers: torch.Tensor,
+    keys: torch.Tensor,
+    items: torch.Tensor,
+    cfg: HLLConfig,
+) -> torch.Tensor:
+    """Reference bank ingest: ONE scatter-max over (key, bucket) cells.
+
+    Row b's bucket idx lands in flattened cell ``b*m + idx``.  Out-of-range
+    keys route to a discarded trailing cell (never clamped into a
+    neighboring row); ``pipelines`` is ignored because the scatter is
+    already one fused op.
+    """
+    _check_cell_space(registers)
+    _, _, _, _bank = _kernels()
+    idx, rank = hll.hash_index_rank(items, cfg)
+    return _bank.bank_scatter_max_plain(registers, keys, idx, rank)
+
+
+def bank_update(
+    registers: torch.Tensor,
+    keys: torch.Tensor,
+    items: torch.Tensor,
+    cfg: HLLConfig,
+) -> torch.Tensor:
+    """Kernel bank ingest: the hash_rank kernel, then the bank_scatter kernel.
+
+    The scatter kernel drops out-of-range keys itself (the §9 drop rule);
+    the reference's ``row_block`` tiling has no counterpart, since the
+    kernel raises any cell of (a copy of) the whole bank with atomics.
+    """
+    _check_cell_space(registers)
+    _, _, _, _bank = _kernels()
+    idx, rank = hash_rank(items, cfg)
+    return _bank.bank_scatter_max(registers, keys, idx, rank)
+
+
+@register_bank_backend("torch")
+def _torch_bank_backend(registers, keys, items, cfg: HLLConfig, plan: ExecutionPlan):
+    return bank_update_torch(registers, keys, items, cfg)
+
+
+@register_bank_backend("cuda")
+def _cuda_bank_backend(registers, keys, items, cfg: HLLConfig, plan: ExecutionPlan):
+    return bank_update(registers, keys, items, cfg)
+
+
+@register_bank_backend("cuda_pipelined")
+def _cuda_pipelined_bank_backend(registers, keys, items, cfg: HLLConfig, plan: ExecutionPlan):
+    # the reference splits the bank into k row blocks to stay under its
+    # VMEM cap; the atomic scatter has no cap, so k pipelines are one launch
+    return bank_update(registers, keys, items, cfg)

@@ -1,0 +1,39 @@
+"""The single aggregation entry point: update_registers(regs, items, cfg, plan).
+
+Port of ``repro/sketch/dispatch.py::update_registers`` for
+placement="local" (the plan itself refuses the other placements until the
+placement slice, ROADMAP A.10).  The ``ExecutionPlan`` chooses the backend,
+and every plan yields bit-identical registers on the same stream
+(DESIGN.md §3).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.sketch import hll
+from repro_torch.sketch.hll import HLLConfig
+from repro_torch.sketch.plan import DEFAULT_PLAN, ExecutionPlan, get_backend
+
+
+def update_registers(
+    registers: torch.Tensor,
+    items,
+    cfg: HLLConfig,
+    plan: Optional[ExecutionPlan] = None,
+) -> torch.Tensor:
+    """Aggregate ``items`` into ``registers`` under ``plan`` (Phase 3).
+
+    Items go to the registers' device first.  An empty stream cannot move a
+    register and returns ``registers`` without any backend dispatch.
+    """
+    plan = (DEFAULT_PLAN if plan is None else plan).validate()
+    backend = get_backend(plan.backend)
+    flat = hll.as_items(items, registers.device)
+    if flat.shape[0] == 0:
+        # the reference counts this skip (dispatch.update.skipped_empty) and
+        # observes the batch size below; obs sites wait for ROADMAP A.9
+        return registers
+    return backend(registers, flat, cfg, plan)

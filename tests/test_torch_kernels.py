@@ -1,0 +1,231 @@
+"""Port vs reference: the plain versions of the main path's kernels.
+
+On the CPU each port wrapper runs its plain PyTorch version.  These tests
+hold it to the reference's Pallas kernel in interpret mode at p <= 12
+(where the TPU kernels' VMEM caps allow them) and to ``repro/kernels/ref.py``
+or the reference's jnp path at p = 16:
+
+  bucket_fold       several (k, m), uint8 and int32 partials;
+  hll_update_fused  n_valid padding and accumulation onto existing registers;
+  bank_scatter_max  foreign keys (-1, B, beyond) and rank-0 padding dropped.
+
+The ``gpu`` tests hold each CUDA kernel to its plain version on the card.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import bank_scatter as ref_bank_scatter
+from repro.kernels import bucket_fold as ref_bucket_fold
+from repro.kernels import hll_fused as ref_hll_fused
+from repro.kernels import ref as ref_oracles
+from repro.sketch.backends import bank_update_jnp
+from repro.sketch.hll import HLLConfig as RefConfig
+from repro_torch.kernels import bank_scatter, bucket_fold, hll_fused
+from repro_torch.sketch import hll
+from repro_torch.sketch.hll import HLLConfig
+
+LANES = 128
+
+
+def _u32(n, seed):
+    return np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint32)
+
+
+def _t(items_u32):
+    return torch.from_numpy(items_u32.view(np.int32).copy())
+
+
+def _registers(cfg, seed):
+    """Existing registers: random valid ranks, a third of them still zero."""
+    regs = np.random.default_rng(seed).integers(0, cfg.max_rank + 1, cfg.m).astype(np.uint8)
+    regs[: cfg.m // 3] = 0
+    return regs
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+# ----------------------------------------------------------------------------
+# bucket_fold
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k,p", [(1, 4), (3, 8), (8, 12), (4, 16), (8, 16)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_bucket_fold_matches_reference(k, p, dtype):
+    m = 1 << p
+    partials = np.random.default_rng(k * p).integers(0, 60, (k, m)).astype(dtype)
+    got = bucket_fold.bucket_fold(torch.from_numpy(partials))
+    assert got.dtype == torch.from_numpy(partials).dtype and got.shape == (m,)
+    if p <= 12:
+        want = ref_bucket_fold.bucket_fold(jnp.asarray(partials.astype(np.int32)), interpret=True)
+    else:
+        want = ref_oracles.bucket_fold_ref(jnp.asarray(partials.astype(np.int32)))
+    np.testing.assert_array_equal(got.numpy().astype(np.int32), np.asarray(want))
+
+
+def test_bucket_fold_validates_shape_and_dtype():
+    with pytest.raises(ValueError, match="k >= 1"):
+        bucket_fold.bucket_fold(torch.zeros((0, 16), dtype=torch.uint8))
+    with pytest.raises(TypeError, match="uint8 or int32"):
+        bucket_fold.bucket_fold(torch.zeros((2, 16), dtype=torch.int64))
+    with pytest.raises(ValueError, match="divisible by 4"):
+        bucket_fold.bucket_fold(torch.zeros((2, 18), dtype=torch.uint8))
+
+
+# ----------------------------------------------------------------------------
+# hll_update_fused
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hash_bits", [32, 64])
+@pytest.mark.parametrize("p", [4, 8, 12, 16])
+def test_hll_update_fused_matches_reference(p, hash_bits):
+    cfg = HLLConfig(p=p, hash_bits=hash_bits, seed=5)
+    rcfg = RefConfig(p=p, hash_bits=hash_bits, seed=5)
+    tile = ref_hll_fused.DEFAULT_BLOCK_ROWS * LANES
+    items = _u32(3 * tile, p + hash_bits)  # the tail past n_valid is live data
+    n_valid = 2 * tile + 77
+    regs = _registers(cfg, p)
+    got = hll_fused.hll_update_fused(torch.from_numpy(regs), _t(items), n_valid, cfg)
+    if p <= ref_hll_fused.MAX_FUSED_P:
+        want = ref_hll_fused.hll_update_fused(
+            jnp.asarray(regs.astype(np.int32)).reshape(1, cfg.m),
+            jnp.asarray(items).reshape(-1, LANES),
+            jnp.full((1, 1), n_valid, jnp.int32),
+            rcfg,
+            interpret=True,
+        ).reshape(cfg.m)
+    else:
+        want = ref_oracles.hll_update_fused_ref(jnp.asarray(regs), jnp.asarray(items[:n_valid]), rcfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.uint8))
+    assert got.dtype == hll.REGISTER_DTYPE
+
+
+def test_hll_update_fused_is_functional_and_masks_everything_past_n_valid():
+    cfg = HLLConfig(p=8)
+    regs = torch.from_numpy(_registers(cfg, 1))
+    before = regs.clone()
+    out = hll_fused.hll_update_fused(regs, _t(_u32(500, 2)), 0, cfg)
+    torch.testing.assert_close(out, before, rtol=0, atol=0)
+    torch.testing.assert_close(regs, before, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="uint8"):
+        hll_fused.hll_update_fused(regs.to(torch.int32), _t(_u32(5, 2)), None, cfg)
+
+
+# ----------------------------------------------------------------------------
+# bank_scatter_max
+# ----------------------------------------------------------------------------
+
+
+def _keyed_stream(n, rows, cfg, seed):
+    """(keys, idx, rank) int32 with foreign keys and rank-0 padding mixed in."""
+    rng = np.random.default_rng(seed)
+    items = _u32(n, seed)
+    keys = rng.integers(-2, rows + 3, n).astype(np.int32)
+    keys[:3] = [-1, rows, rows + 100]
+    idx, rank = hll.hash_index_rank(_t(items), cfg)
+    rank = rank.numpy().copy()
+    rank[rng.random(n) < 0.1] = 0
+    return keys, idx.numpy(), rank, items
+
+
+@pytest.mark.parametrize("hash_bits", [32, 64])
+@pytest.mark.parametrize("p,rows,row_block", [(4, 37, 1), (4, 36, 12), (8, 10, 5), (12, 5, 1)])
+def test_bank_scatter_max_matches_reference_kernel(p, rows, row_block, hash_bits):
+    cfg = HLLConfig(p=p, hash_bits=hash_bits)
+    tile = ref_bank_scatter.DEFAULT_BLOCK_ROWS * LANES
+    keys, idx, rank, _ = _keyed_stream(2 * tile, rows, cfg, p + rows)
+    bank = np.stack([_registers(cfg, r) for r in range(rows)])
+    got = bank_scatter.bank_scatter_max(
+        torch.from_numpy(bank), torch.from_numpy(keys), torch.from_numpy(idx), torch.from_numpy(rank)
+    )
+    want = ref_bank_scatter.bank_scatter_max(
+        jnp.asarray(bank.astype(np.int32)),
+        jnp.asarray(keys).reshape(-1, LANES),
+        jnp.asarray(idx).reshape(-1, LANES),
+        jnp.asarray(rank).reshape(-1, LANES),
+        m=cfg.m,
+        row_block=row_block,
+        interpret=True,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.uint8))
+
+
+@pytest.mark.parametrize("hash_bits", [32, 64])
+def test_bank_scatter_max_p16_matches_reference_jnp_path(hash_bits):
+    cfg = HLLConfig(p=16, hash_bits=hash_bits)
+    rows = 3
+    keys, _, _, items = _keyed_stream(4096, rows, cfg, 16)
+    bank = np.stack([_registers(cfg, r) for r in range(rows)])
+    idx, rank = hll.hash_index_rank(_t(items), cfg)
+    got = bank_scatter.bank_scatter_max(torch.from_numpy(bank), torch.from_numpy(keys), idx, rank)
+    want = bank_update_jnp(
+        jnp.asarray(bank), jnp.asarray(keys), jnp.asarray(items), RefConfig(p=16, hash_bits=hash_bits)
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bank_scatter_max_drops_foreign_keys_without_trace():
+    cfg = HLLConfig(p=6)
+    rows = 4
+    keys, idx, rank, _ = _keyed_stream(2000, rows, cfg, 9)
+    bank = torch.zeros((rows, cfg.m), dtype=torch.uint8)
+    got = bank_scatter.bank_scatter_max(bank, *map(torch.from_numpy, (keys, idx, rank)))
+    keep = (keys >= 0) & (keys < rows) & (rank > 0)
+    only_valid = bank_scatter.bank_scatter_max(
+        bank, *(torch.from_numpy(a[keep]) for a in (keys, idx, rank))
+    )
+    torch.testing.assert_close(got, only_valid, rtol=0, atol=0)
+    assert int(bank.sum()) == 0  # functional: the input bank is untouched
+
+
+# ----------------------------------------------------------------------------
+# the CUDA kernels on the card
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_hll_update_fused_kernel_matches_plain_on_card():
+    _need_card()
+    for p, hash_bits in ((4, 32), (12, 64), (14, 64), (16, 32), (16, 64)):
+        cfg = HLLConfig(p=p, hash_bits=hash_bits)
+        regs = torch.from_numpy(_registers(cfg, p)).cuda()
+        x = _t(_u32((1 << 21) + 5, p)).cuda()
+        for n_valid in (None, 1000):
+            before = hll_fused.hll_update_fused.launches
+            got = hll_fused.hll_update_fused(regs, x, n_valid, cfg)
+            assert hll_fused.hll_update_fused.launches == before + 1
+            want = hll_fused.hll_update_fused_plain(regs, x, n_valid, cfg)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_bucket_fold_kernel_matches_plain_on_card():
+    _need_card()
+    rng = np.random.default_rng(0)
+    for k, m, dtype in ((8, 1 << 16, np.uint8), (3, 20, np.uint8), (5, 1001, np.int32)):
+        partials = torch.from_numpy(rng.integers(0, 60, (k, m)).astype(dtype)).cuda()
+        before = bucket_fold.bucket_fold.launches
+        got = bucket_fold.bucket_fold(partials)
+        assert bucket_fold.bucket_fold.launches == before + 1
+        torch.testing.assert_close(got, bucket_fold.bucket_fold_plain(partials), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_bank_scatter_max_kernel_matches_plain_on_card():
+    _need_card()
+    cfg = HLLConfig(p=16, hash_bits=64)
+    rows = 64
+    keys, idx, rank, _ = _keyed_stream(1 << 20, rows, cfg, 3)
+    bank = torch.from_numpy(np.stack([_registers(cfg, r) for r in range(rows)])).cuda()
+    args = [torch.from_numpy(a).cuda() for a in (keys, idx, rank)]
+    before = bank_scatter.bank_scatter_max.launches
+    got = bank_scatter.bank_scatter_max(bank, *args)
+    assert bank_scatter.bank_scatter_max.launches == before + 1
+    torch.testing.assert_close(got, bank_scatter.bank_scatter_max_plain(bank, *args), rtol=0, atol=0)

@@ -1,0 +1,92 @@
+"""The whole main-path slice of the port against the reference.
+
+* One seeded keyed stream, in several chunks, through the port's default
+  plan on the CPU and through the reference's default plan: the same final
+  bank, counters, bytes and estimates; likewise one single-sketch stream.
+* ``chip_smoke.py``'s phases rehearsed at a tiny size on the CPU, where
+  every kernel wrapper runs its plain version.
+* ``import repro_torch`` and ``import chip_smoke`` pull in no ``jax`` and
+  nothing of ``repro``.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.sketch import HyperLogLog as RefHLL
+from repro.sketch import SketchBank as RefBank
+from repro.sketch.hll import HLLConfig as RefConfig
+from repro_torch import HLLConfig, HyperLogLog, SketchBank
+from repro_torch.kernels import launch_counts, reset_launches
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+
+def test_keyed_stream_through_the_whole_slice_matches_reference():
+    rng = np.random.default_rng(2024)
+    rows, p, hash_bits = 29, 12, 64
+    bank = SketchBank.empty(rows, HLLConfig(p=p, hash_bits=hash_bits), device="cpu")
+    ref = RefBank.empty(rows, RefConfig(p=p, hash_bits=hash_bits))
+    for _ in range(4):
+        keys = ((rng.zipf(1.2, 3000) - 1) % (rows + 2) - 1).astype(np.int32)  # -1 and B too
+        items = rng.integers(0, 2**31, 3000, dtype=np.int32)
+        bank = bank.update_many(keys, items)
+        ref = ref.update_many(jnp.asarray(keys), jnp.asarray(items))
+    np.testing.assert_array_equal(bank.registers.numpy(), np.asarray(ref.registers))
+    np.testing.assert_array_equal(bank.counts, ref.counts)
+    assert bank.to_bytes() == ref.to_bytes()
+    np.testing.assert_allclose(bank.estimate_many().numpy(), np.asarray(ref.estimate_many()), rtol=1e-6)
+    assert [bank.estimate(i) for i in range(rows)] == [ref.estimate(i) for i in range(rows)]
+
+
+def test_single_sketch_stream_through_the_whole_slice_matches_reference():
+    rng = np.random.default_rng(7)
+    cfg = HLLConfig(p=16, hash_bits=32, seed=99)
+    sk, ref = HyperLogLog.empty(cfg, "cpu"), RefHLL.empty(RefConfig(p=16, hash_bits=32, seed=99))
+    for _ in range(3):
+        items = rng.integers(0, 2**32, 4096, dtype=np.uint32)
+        sk, ref = sk.update(items), ref.update(jnp.asarray(items))
+    assert sk.to_bytes() == ref.to_bytes()
+    assert sk.estimate() == ref.estimate() and sk.count == ref.count
+
+
+def test_chip_smoke_phases_rehearse_on_the_cpu():
+    reset_launches()
+    errs = chip_smoke.phase_kernels("cpu", n=1 << 10, rows=11, configs=((8, 32), (16, 64)))
+    assert set(errs) == set(chip_smoke.KERNEL_SOURCES) and max(errs.values()) == 0.0
+    stream = chip_smoke.phase_stream("cpu", chunks=2, chunk_items=1 << 11, configs=((10, 64),), pipelines=3)
+    assert stream["items"] == 1 << 12 and len(stream["configs"]) == 1
+    bank = chip_smoke.phase_bank("cpu", rows=13, ticks=2, tick_items=1 << 11, p=8)
+    assert bank["rows"] == 13 and bank["items"] == 1 << 12
+    # on the CPU the wrappers run their plain versions and never count a launch
+    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_reference():
+    code = (
+        "import sys, repro_torch, repro_torch.interop, repro_torch.kernels, chip_smoke\n"
+        "repro_torch.kernels.wrappers()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    run = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a card")
+    run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode != 0 and '"ok"' not in run.stdout
