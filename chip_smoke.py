@@ -7,14 +7,18 @@ Run from a checkout of the repo on a machine with a CUDA card and the CUDA
 toolkit; it needs no arguments and no network.  Phases, each of which
 raises (exit code 1) when it fails:
 
-  build    compile the four kernels from src/repro_torch/kernels/csrc with
-           nvcc, one process per source, all at once; print the seconds
-           and ptxas's register and shared-memory report.
+  build    compile the seven kernels (six sources) from
+           src/repro_torch/kernels/csrc with nvcc, one process per source,
+           all at once; print the seconds and ptxas's register and
+           shared-memory report.
   kernels  each kernel against its plain PyTorch version on the card,
            bit for bit, at the main path's shapes and at ragged lengths,
            with the edge items 0, 0xFFFFFFFF and negative int32, and keys
            -1 and B for the bank; hash/rank also against the pure-python
-           Murmur3 oracles.
+           Murmur3 oracles; sparse_scatter_coo at p in {4, 8, 12, 16} with
+           rows -1 and B and rank-0 entries; window_fold_max with every
+           slice live, a suffix, none live, and W = 1; window_merge_max at
+           K = 3.
   stream   the paper's NIC deployment (Tab. IV), lengthened: 2^26 uint32
            items in 16 chunks of 2^22 through ``update_registers`` under
            "cuda" and "cuda_pipelined" (k = 8), for (p, H) in
@@ -26,15 +30,33 @@ raises (exit code 1) when it fails:
            through ``update_many`` under "cuda", bit-identical to "torch";
            ``estimate_many`` against each row's exact distinct count; the
            RHLB bytes round-trip.
+  hybrid   the acceptance deployment of benchmarks/bench_sparse.py at
+           full size: a 16384-row HybridBank, p = 12, H = 64, threshold
+           m // 4, 222 items per row in 4 chunks, 10 % of the rows taking
+           90 % of the items, read (settled) after every chunk, under
+           "cuda" and under "torch": settled state bit-identical between
+           the two; to_dense() equal to a SketchBank fed the same stream;
+           the LC fast path's estimates equal to that bank's; every row in
+           the bench's Bonferroni band; RHLB v2 bytes round-trip.
+  window   three rings on Zipf(1.2) tenant traffic, 2^20 items an epoch:
+           a WindowedBank W = 64, B = 1024, p = 12, H = 64 (a 256 MiB
+           ring) over 2W epochs, whose estimate_window() and
+           estimate_window(W // 4) under "cuda" equal "torch" every 8th
+           epoch and whose incremental full read equals a cold fold; a
+           MultiResWindowedBank (base 4, levels 4) and a
+           HybridWindowedBank (W = 16) on the same traffic, equal to
+           "torch"; RHLW v1, v3 and v2 bytes round-trip.
   timing   each kernel's device time (CUDA events over warm launches
            queued back to back) and host time per call, its bound (bytes
            over 3.35 TB/s), its plain version's time and, where one
            PyTorch call computes the same function, that call's time.
-  profile  torch.profiler over a few stream chunks and bank ticks: wall
-           and device-busy time per step, idle share, top device entries.
+  profile  torch.profiler over a few stream chunks, bank ticks, hybrid
+           ticks and full-window reads: wall and device-busy time per
+           step, idle share, top device entries.
 
-The launch counters are zeroed just before the stream and bank phases (the
-main path) and read just after; every kernel must have launched there.
+The launch counters are zeroed just before the stream, bank, hybrid and
+window phases (the main path) and read just after; every kernel must have
+launched there.
 Before the last line it prints the kernels' JSON record and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -44,6 +66,7 @@ With no card it raises before printing any result.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -59,11 +82,22 @@ from repro_torch.kernels.bank_scatter import bank_scatter_max, bank_scatter_max_
 from repro_torch.kernels.bucket_fold import bucket_fold, bucket_fold_plain  # noqa: E402
 from repro_torch.kernels.hash_rank import hash_rank, hash_rank_plain  # noqa: E402
 from repro_torch.kernels.hll_fused import hll_update_fused, hll_update_fused_plain  # noqa: E402
+from repro_torch.kernels.sparse_scatter import sparse_scatter_coo, sparse_scatter_coo_plain  # noqa: E402
+from repro_torch.kernels.window_fold import (  # noqa: E402
+    window_fold_max,
+    window_fold_max_plain,
+    window_merge_max,
+    window_merge_max_plain,
+)
 from repro_torch.sketch import (  # noqa: E402
     ExecutionPlan,
     HLLConfig,
+    HybridBank,
+    HybridWindowedBank,
     HyperLogLog,
+    MultiResWindowedBank,
     SketchBank,
+    WindowedBank,
     reference_plan,
 )
 from repro_torch.sketch.murmur3 import murmur3_32_py, murmur3_64_py  # noqa: E402
@@ -78,6 +112,16 @@ BANK_ROWS = 1024
 BANK_TICKS = 8
 BANK_TICK_ITEMS = 1 << 22
 ZIPF_A = 1.2  # tenant skew of benchmarks/bench_serve.py
+HYBRID_ROWS = 16384  # benchmarks/bench_sparse.py, acceptance size
+HYBRID_ITEMS_PER_ROW = 222
+HYBRID_CHUNKS = 4
+HOT_FRAC, HOT_SHARE = 0.1, 0.9  # 10 % of the rows take 90 % of the items
+BAND_ALPHA = 0.01  # the bench's family-wise error budget
+WINDOW = 64  # the top of benchmarks/bench_window.py's W sweep
+WINDOW_ROWS = 1024
+WINDOW_EPOCH_ITEMS = 1 << 20
+HYBRID_WINDOW = 16
+MR_BASE, MR_LEVELS = 4, 4
 EDGE_ITEMS = np.array([0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 1], dtype=np.uint32)
 
 KERNEL_SOURCES = {
@@ -85,7 +129,21 @@ KERNEL_SOURCES = {
     "hll_update_fused": ("src/repro_torch/kernels/csrc/hll_fused.cu", "src/repro/kernels/hll_fused.py:91"),
     "bucket_fold": ("src/repro_torch/kernels/csrc/bucket_fold.cu", "src/repro/kernels/bucket_fold.py:26"),
     "bank_scatter_max": ("src/repro_torch/kernels/csrc/bank_scatter.cu", "src/repro/kernels/bank_scatter.py:92"),
+    "sparse_scatter_coo": ("src/repro_torch/kernels/csrc/sparse_scatter.cu", "src/repro/kernels/sparse_scatter.py:99"),
+    "window_fold_max": ("src/repro_torch/kernels/csrc/window_fold.cu", "src/repro/kernels/window_fold.py:51"),
+    "window_merge_max": ("src/repro_torch/kernels/csrc/window_fold.cu", "src/repro/kernels/window_fold.py:102"),
 }
+
+
+def _sorted_unique(values: np.ndarray) -> np.ndarray:
+    """The distinct values, ascending -- what ``np.unique`` returns, from one
+    ``np.sort`` and a neighbour compare.  With the numpy of an H100 host,
+    ``np.unique`` kept the stream phase busy for minutes (190-257 s; under
+    2 s with this)."""
+    s = np.sort(values)
+    keep = np.ones(s.shape, dtype=bool)
+    keep[1:] = s[1:] != s[:-1]
+    return s[keep]
 
 
 def _items_tensor(values: np.ndarray, device) -> torch.Tensor:
@@ -127,7 +185,8 @@ def phase_build() -> dict:
     return seconds
 
 
-def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS) -> dict:
+def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
+                  hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW) -> dict:
     """Every kernel against its plain version at main-path and ragged sizes."""
     rng = np.random.default_rng(SEED)
     errs = {name: 0.0 for name in KERNEL_SOURCES}
@@ -197,6 +256,47 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
                 f"bank_scatter_max B={rows} n={length}",
             ),
         )
+    for p in (4, 8, 12, 16):
+        m = 1 << p
+        srows = hybrid_rows if p <= 12 else rows
+        for length in (n + 3, 1, 127):
+            row = rng.integers(-1, srows + 1, length, dtype=np.int32)  # -1 and B are dropped
+            row[: min(length, 2)] = [-1, srows][: min(length, 2)]
+            bucket = rng.integers(0, m, length, dtype=np.int32)
+            rank = rng.integers(0, 60, length, dtype=np.int32)
+            rank[::5] = 0  # rank-0 entries are no-ops
+            args = [torch.from_numpy(a).to(device) for a in (row, bucket, rank)]
+            got = sparse_scatter_coo(*args, srows, m)
+            want = sparse_scatter_coo_plain(*args, srows, m)
+            errs["sparse_scatter_coo"] = max(
+                errs["sparse_scatter_coo"],
+                _max_abs_err(got[0], want[0], f"sparse_scatter_coo cells p={p} B={srows} n={length}"),
+                _max_abs_err(got[1], want[1], f"sparse_scatter_coo distinct p={p} B={srows} n={length}"),
+            )
+    m = 1 << 12
+    ring = torch.from_numpy(rng.integers(0, 40, (window, rows, m), dtype=np.uint8)).to(device)
+    masks = {
+        "all live": torch.ones(window, dtype=torch.bool),
+        f"last_k={window // 4}": torch.arange(window) >= window - window // 4,
+        "none live": torch.zeros(window, dtype=torch.bool),
+    }
+    for what, mask in masks.items():
+        mask = mask.to(device)
+        errs["window_fold_max"] = max(
+            errs["window_fold_max"],
+            _max_abs_err(window_fold_max(ring, mask), window_fold_max_plain(ring, mask),
+                         f"window_fold_max W={window} {what}"),
+        )
+    one = ring[:1].clone()
+    live = torch.ones(1, dtype=torch.bool, device=device)
+    errs["window_fold_max"] = max(
+        errs["window_fold_max"],
+        _max_abs_err(window_fold_max(one, live), window_fold_max_plain(one, live), "window_fold_max W=1"),
+    )
+    parts = ring[:3].clone()
+    errs["window_merge_max"] = _max_abs_err(
+        window_merge_max(parts), window_merge_max_plain(parts), "window_merge_max K=3"
+    )
     print(f"[kernels] bit-identical to their plain versions: max_abs_err {errs}")
     return errs
 
@@ -206,7 +306,7 @@ def phase_stream(device, chunks: int = STREAM_CHUNKS, chunk_items: int = STREAM_
     """The Tab. IV stream through the kernel backends, held to "torch"."""
     rng = np.random.default_rng(SEED)
     values = rng.integers(0, 2**32, chunks * chunk_items, dtype=np.uint32)
-    exact = int(np.unique(values).size)
+    exact = int(_sorted_unique(values).size)
     x = _items_tensor(values, device)
     plans = {
         "cuda": ExecutionPlan(backend="cuda"),
@@ -284,7 +384,7 @@ def phase_bank(device, rows: int = BANK_ROWS, ticks: int = BANK_TICKS,
     est = bank.estimate_many()
     if est.shape != (rows,) or not bool(torch.isfinite(est).all()):
         raise AssertionError(f"estimate_many: shape {tuple(est.shape)}, finite {bool(torch.isfinite(est).all())}")
-    pairs = np.unique((keys.astype(np.int64) << 32) | items.astype(np.int64))
+    pairs = _sorted_unique((keys.astype(np.int64) << 32) | items.astype(np.int64))
     exact = np.bincount((pairs >> 32).astype(np.int64), minlength=rows)
     sigma = 1.04 / np.sqrt(cfg.m)
     err = np.abs(est.cpu().numpy().astype(np.float64) - exact)
@@ -304,6 +404,174 @@ def phase_bank(device, rows: int = BANK_ROWS, ticks: int = BANK_TICKS,
         "rhlb_bytes": len(blob),
     }
     print(f"[bank] {json.dumps(result)}")
+    return result
+
+
+def _zipf_traffic(rows: int, n: int, rng: np.random.Generator):
+    """Keyed stream where HOT_FRAC of the rows receive HOT_SHARE of the
+    items, as benchmarks/bench_sparse.py's ``_zipf_traffic``."""
+    hot = max(1, int(rows * HOT_FRAC))
+    hot_keys = rng.integers(0, hot, n)
+    cold_keys = rng.integers(hot, rows, n) if rows > hot else hot_keys
+    keys = np.where(rng.random(n) < HOT_SHARE, hot_keys, cold_keys)
+    return keys.astype(np.int32), rng.integers(0, 2**31, n, dtype=np.int32)
+
+
+def _band_z(rows: int) -> float:
+    """Bonferroni z for the max error over ``rows`` estimates, as
+    benchmarks/bench_sparse.py's ``_band_z``."""
+    return statistics.NormalDist().inv_cdf(1.0 - BAND_ALPHA / (2.0 * rows))
+
+
+def _same_hybrid(a: HybridBank, b: HybridBank, what: str) -> None:
+    """Raise unless two settled hybrid banks are bit-identical."""
+    for field in ("pairs", "sparse_len", "dense", "dense_slot"):
+        _max_abs_err(getattr(a, field), getattr(b, field), f"{what} {field}")
+    if not np.array_equal(a.counts, b.counts):
+        raise AssertionError(f"{what}: counters differ")
+
+
+def phase_hybrid(device, rows: int = HYBRID_ROWS, items_per_row: int = HYBRID_ITEMS_PER_ROW,
+                 chunks: int = HYBRID_CHUNKS, p: int = 12, hash_bits: int = 64) -> dict:
+    """The bench_sparse acceptance deployment through "cuda", held to "torch"."""
+    rng = np.random.default_rng(rows)
+    n = items_per_row * rows
+    keys, items = _zipf_traffic(rows, n, rng)
+    cfg = HLLConfig(p=p, hash_bits=hash_bits)
+    k_chunks = torch.from_numpy(keys).to(device).tensor_split(chunks)
+    x_chunks = torch.from_numpy(items).to(device).tensor_split(chunks)
+    banks, seconds = {}, {}
+    for name, plan in (("cuda", ExecutionPlan(backend="cuda")), ("torch", reference_plan())):
+        # warm-up: one chunk through a throwaway bank, so the timed pass
+        # pays no first-call costs (kernel loads, allocator growth)
+        HybridBank.empty(rows, cfg, device=device).update_many(k_chunks[0], x_chunks[0], plan).compact()
+        bank = HybridBank.empty(rows, cfg, device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        for k, x in zip(k_chunks, x_chunks):
+            # a read after every chunk settles the append log (compaction
+            # inside the timed region, as the bench times it)
+            bank = bank.update_many(k, x, plan).compact()
+        _sync(device)
+        seconds[name] = time.perf_counter() - t0
+        banks[name] = bank
+    bank = banks["cuda"]
+    _same_hybrid(bank, banks["torch"], "hybrid cuda vs torch")
+    dense = SketchBank.empty(rows, cfg, device)
+    for k, x in zip(k_chunks, x_chunks):
+        dense = dense.update_many(k, x, ExecutionPlan(backend="cuda"))
+    _max_abs_err(bank.to_dense().registers, dense.registers, "hybrid to_dense vs dense bank")
+    if not 0 < bank.dense_rows < rows:
+        raise AssertionError(f"hybrid: {bank.dense_rows} of {rows} rows promoted")
+
+    est = bank.estimate_many()
+    dense_est = dense.estimate_many()
+    sparse_rows = bank.dense_slot < 0
+    # the LC fast path on sparse rows is the dense path's small-range
+    # branch, bit for bit; dense rows run the same finalizer on a smaller
+    # batch (its harmonic sum is a float32 matrix-vector product, so it is
+    # held to 1e-6 and the differing rows are counted)
+    _max_abs_err(est[sparse_rows].view(torch.int32), dense_est[sparse_rows].view(torch.int32),
+                 "hybrid LC fast path vs dense estimate_many")
+    dense_diff = int((est[~sparse_rows] != dense_est[~sparse_rows]).sum())
+    if not torch.allclose(est, dense_est, rtol=1e-6, atol=0):
+        raise AssertionError("hybrid dense-row estimates differ from the dense bank beyond 1e-6")
+
+    combo = _sorted_unique(keys.astype(np.int64) * (1 << 31) + items.astype(np.int64))
+    true = np.bincount((combo >> 31).astype(np.int64), minlength=rows)
+    z = _band_z(rows)
+    sigma = 1.04 / np.sqrt(cfg.m)
+    tol = z * sigma * true + 3.0 * np.sqrt(true + 1.0)
+    err = np.abs(est.cpu().numpy().astype(np.float64) - true)
+    if not (err <= tol).all():
+        worst = int(np.argmax(err - tol))
+        raise AssertionError(f"hybrid row {worst}: estimate {float(est[worst])} vs true {true[worst]} "
+                             f"outside the {z:.2f}-sigma band")
+
+    blob = bank.to_bytes()
+    if HybridBank.from_bytes(blob, device).to_bytes() != blob:
+        raise AssertionError("RHLB v2 round trip changed the hybrid bank")
+    result = {
+        "rows": rows, "items": int(n), "promoted_rows": bank.dense_rows, "capacity": bank.capacity,
+        "dense_nbytes": dense.nbytes, "hybrid_nbytes": bank.nbytes,
+        "memory_reduction": dense.nbytes / bank.nbytes,
+        "ingest_items_per_s": {name: n / sec for name, sec in seconds.items()},
+        "band_z": z, "max_err_sigma": float((err / np.maximum(sigma * true, 1e-9)).max()),
+        "dense_rows_estimate_ulp_diffs": dense_diff, "rhlb_v2_bytes": len(blob),
+    }
+    print(f"[hybrid] {json.dumps(result)}")
+    return result
+
+
+def _zipf_epoch(rows: int, n: int, rng: np.random.Generator, device):
+    keys, items = _zipf_keyed(rows, n, rng)
+    return torch.from_numpy(keys).to(device), torch.from_numpy(items).to(device)
+
+
+def phase_window(device, window: int = WINDOW, rows: int = WINDOW_ROWS, epoch_items: int = WINDOW_EPOCH_ITEMS,
+                 p: int = 12, hash_bits: int = 64, hybrid_window: int = HYBRID_WINDOW,
+                 mr_base: int = MR_BASE, mr_levels: int = MR_LEVELS) -> dict:
+    """Three rings on one Zipf-keyed epoch stream, "cuda" held to "torch"."""
+    rng = np.random.default_rng(SEED + 5)
+    cfg = HLLConfig(p=p, hash_bits=hash_bits)
+    plans = {"cuda": ExecutionPlan(backend="cuda"), "torch": reference_plan()}
+    rings = {name: WindowedBank.empty(window, rows, cfg, device) for name in plans}
+    multi = {name: MultiResWindowedBank.empty(mr_base, rows, cfg, mr_levels, device) for name in plans}
+    hybrid = {name: HybridWindowedBank.empty(hybrid_window, rows, cfg, device=device) for name in plans}
+    epochs = 2 * window
+    seconds, reads = 0.0, 0
+    for epoch in range(epochs):
+        k, x = _zipf_epoch(rows, epoch_items, rng, device)
+        for name, plan in plans.items():
+            if epoch:
+                rings[name] = rings[name].advance()
+                multi[name] = multi[name].advance()
+                hybrid[name] = hybrid[name].advance()
+            rings[name] = rings[name].observe(k, x, plan)
+            multi[name] = multi[name].observe(k, x, plan)
+            hybrid[name] = hybrid[name].observe(k, x, plan)
+        if epoch % 8 != 7:
+            continue
+        ring, ref = rings["cuda"], rings["torch"]
+        _max_abs_err(ring.registers, ref.registers, f"window ring registers epoch {epoch}")
+        _sync(device)
+        t0 = time.perf_counter()
+        full = ring.estimate_window(plan=plans["cuda"])
+        quarter = ring.estimate_window(window // 4, plan=plans["cuda"])
+        _sync(device)
+        seconds += time.perf_counter() - t0
+        reads += 1
+        _max_abs_err(full.view(torch.int32), ref.estimate_window(plan=plans["torch"]).view(torch.int32),
+                     f"window estimate_window() epoch {epoch}")
+        _max_abs_err(quarter.view(torch.int32),
+                     ref.estimate_window(window // 4, plan=plans["torch"]).view(torch.int32),
+                     f"window estimate_window({window // 4}) epoch {epoch}")
+        cold = window_fold_max_plain(ring.registers, torch.ones(window, dtype=torch.bool, device=device))
+        _max_abs_err(ring.fold_window(plan=plans["cuda"]).registers, cold,
+                     f"window incremental read vs cold fold epoch {epoch}")
+        _max_abs_err(multi["cuda"].estimate_window(plan=plans["cuda"]).view(torch.int32),
+                     multi["torch"].estimate_window(plan=plans["torch"]).view(torch.int32),
+                     f"multi-res estimate_window() epoch {epoch}")
+        _same_hybrid(hybrid["cuda"].fold_window(plan=plans["cuda"]),
+                     hybrid["torch"].fold_window(plan=plans["torch"]), f"hybrid ring fold epoch {epoch}")
+    ring, mr, hy = rings["cuda"], multi["cuda"], hybrid["cuda"]
+    exact = ring.window_counts()
+    if exact.sum() != np.uint64(window * epoch_items):
+        raise AssertionError(f"window counters: {exact.sum()} != {window * epoch_items}")
+    for blob_of, parse, what in (
+        (ring.to_bytes, WindowedBank.from_bytes, "RHLW v1"),
+        (mr.to_bytes, MultiResWindowedBank.from_bytes, "RHLW v3"),
+        (hy.to_bytes, HybridWindowedBank.from_bytes, "RHLW v2"),
+    ):
+        blob = blob_of()
+        if parse(blob, device).to_bytes() != blob:
+            raise AssertionError(f"{what} round trip changed the ring")
+    result = {
+        "window": window, "rows": rows, "epochs": epochs, "ring_mib": ring.registers.numel() / 2**20,
+        "read_ms": seconds * 1e3 / max(reads, 1), "multires_slots": mr.slots,
+        "hybrid_ring": hy.density(),
+    }
+    print(f"[window] {json.dumps(result)}")
     return result
 
 
@@ -349,7 +617,8 @@ def _time_ms(fn, args_list, iters: int = 50, warmup: int = 3) -> tuple:
     return device_ms, (time.perf_counter() - t0) * 1e3 / iters
 
 
-def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS) -> dict:
+def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: int = HYBRID_ROWS,
+                 window: int = WINDOW) -> dict:
     """Kernel, plain and library times at the main path's shapes."""
     rng = np.random.default_rng(SEED + 2)
     cfg = HLLConfig(p=16, hash_bits=64)
@@ -364,6 +633,21 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS) -> dict:
     cells = k_t.to(torch.int64) * m + idx
     rank8 = rank.to(torch.uint8)
     flat = bank.reshape(-1)
+    # sparse_scatter_coo at the hybrid compaction's shape: the whole
+    # bench_sparse stream (222 items a row) deduped into (16384, 4096) cells
+    sm = 1 << 12
+    triples = hybrid_rows * HYBRID_ITEMS_PER_ROW
+    hkeys, hitems = _zipf_traffic(hybrid_rows, triples, rng)
+    hrow = torch.from_numpy(hkeys).to(device)
+    hidx, hrank = hash_rank(_items_tensor(hitems.view(np.uint32), device), HLLConfig(p=12, hash_bits=64))
+    hcell = hrow.to(torch.int64) * sm + hidx
+    # window_fold_max over the 256 MiB ring with every slice live, and
+    # window_merge_max over the K = 3 fragments, rotated over 8 stacks so
+    # they do not sit in L2
+    ring = torch.from_numpy(rng.integers(0, 40, (window, rows, sm), dtype=np.uint8)).to(device)
+    live = torch.ones(window, dtype=torch.bool, device=device)
+    stacks = [(torch.from_numpy(rng.integers(0, 40, (3, rows, sm), dtype=np.uint8)).to(device),)
+              for _ in range(8)]
     calls = {
         "hash_rank": (
             (lambda x: hash_rank(x, cfg), streams),
@@ -389,6 +673,26 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS) -> dict:
             (lambda: flat.scatter_reduce(0, cells, rank8, "amax"), [()]),
             2 * bank.numel() + 12 * n,
         ),
+        "sparse_scatter_coo": (
+            (lambda: sparse_scatter_coo(hrow, hidx, hrank, hybrid_rows, sm), [()]),
+            (lambda: sparse_scatter_coo_plain(hrow, hidx, hrank, hybrid_rows, sm), [()]),
+            # the cells half only: one scatter_reduce amax into zeroed cells
+            (lambda: torch.zeros(hybrid_rows * sm, dtype=torch.int32, device=device).scatter_reduce_(
+                0, hcell, hrank, "amax"), [()]),
+            12 * triples + 4 * hybrid_rows * sm + 4 * hybrid_rows,
+        ),
+        "window_fold_max": (
+            (window_fold_max, [(ring, live)]),
+            (window_fold_max_plain, [(ring, live)]),
+            (lambda: torch.amax(ring, 0), [()]),
+            ring.numel() + rows * sm,
+        ),
+        "window_merge_max": (
+            (window_merge_max, stacks),
+            (window_merge_max_plain, stacks),
+            (lambda t: torch.amax(t, 0), stacks),
+            4 * rows * sm,
+        ),
     }
     out = {}
     for name, (kernel, plain, library, nbytes) in calls.items():
@@ -404,12 +708,17 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS) -> dict:
     return out
 
 
-def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROWS) -> dict:
+def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROWS,
+                  hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW) -> dict:
     """Where the main path's time goes: torch.profiler over a few steps.
 
     One step is one ``HyperLogLog.update`` of an n-item chunk under "cuda"
-    (p = 16, H = 64), or one ``SketchBank.update_many`` tick of n Zipf-keyed
-    items.  Prints the wall time per step (without the profiler), the
+    (p = 16, H = 64), one ``SketchBank.update_many`` tick of n Zipf-keyed
+    items, one hybrid tick (``HybridBank.update_many`` of a quarter of the
+    bench_sparse stream and the read that settles it, on a bank already
+    holding the other three quarters) or one full-window read
+    (``estimate_window()`` of a fresh instance of the W = 64 ring: the
+    three-fragment merge and the estimator).  Prints the wall time per step (without the profiler), the
     card's busy time per step (the sum of its kernel and copy times, from
     the profiler) and the idle share, and the top device entries by self
     time.  Informational: an empty device trace
@@ -427,9 +736,24 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     # same filled state
     sk = HyperLogLog.empty(cfg, device).update(chunk, plan)
     bank = SketchBank.empty(rows, cfg, device).update_many(k_t, x_t, plan)
+    hcfg = HLLConfig(p=12, hash_bits=64)
+    hkeys, hitems = _zipf_traffic(hybrid_rows, HYBRID_ITEMS_PER_ROW * hybrid_rows, rng)
+    hk = torch.from_numpy(hkeys).to(device).tensor_split(HYBRID_CHUNKS)
+    hx = torch.from_numpy(hitems).to(device).tensor_split(HYBRID_CHUNKS)
+    hyb = HybridBank.empty(hybrid_rows, hcfg, device=device)
+    for k, x in zip(hk[:-1], hx[:-1]):
+        hyb = hyb.update_many(k, x, plan).compact()
+    ring = WindowedBank.empty(window, rows, hcfg, device)
+    for epoch in range(window + 1):
+        ring = ring.observe(*_zipf_epoch(rows, WINDOW_EPOCH_ITEMS, rng, device), plan).advance()
+    ring.estimate_window(plan=plan)  # builds the decomposition the reads thread
     steps_fn = {
         "stream": lambda: sk.update(chunk, plan),
         "bank": lambda: bank.update_many(k_t, x_t, plan),
+        "hybrid": lambda: hyb.update_many(hk[-1], hx[-1], plan).compact(),
+        # advance_to(current epoch) is a new instance with the decomposition
+        # threaded and an empty fold cache: the steady full-window read
+        "window_read": lambda: ring.advance_to(ring.epoch).estimate_window(plan=plan),
     }
     result = {}
     for name, step in steps_fn.items():
@@ -462,28 +786,40 @@ def nvidia_smi() -> str:
     ).stdout.strip()
 
 
+def _timed(phase, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[wall] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
     device = torch.device("cuda")
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    phase_build()
-    errs = phase_kernels(device)
+    _timed(phase_build)
+    errs = _timed(phase_kernels, device)
 
     reset_launches()
-    stream = phase_stream(device)
-    bank = phase_bank(device)
+    stream = _timed(phase_stream, device)
+    bank = _timed(phase_bank, device)
+    hybrid = _timed(phase_hybrid, device)
+    window = _timed(phase_window, device)
     launches = launch_counts()
     print(f"[main path] launches {launches}")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
-    timing = phase_timing(device)
-    phase_profile(device)
+    timing = _timed(phase_timing, device)
+    _timed(phase_profile, device)
     best = max(stream["configs"], key=lambda r: r["items_per_s"]["cuda"])
     print(f"[timing] stream end to end, cuda: {best['items_per_s']['cuda']:.4g} items/s "
-          f"at p={best['p']} H={best['hash_bits']}; bank ingest {bank['ingest_items_per_s']:.4g} items/s")
+          f"at p={best['p']} H={best['hash_bits']}; bank ingest {bank['ingest_items_per_s']:.4g} items/s; "
+          f"hybrid ingest {hybrid['ingest_items_per_s']['cuda']:.4g} items/s (compaction included); "
+          f"full+quarter window read {window['read_ms']:.4g} ms")
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -12,8 +12,12 @@ from repro_torch.sketch import (  # noqa: F401
     DEFAULT_PLAN,
     ExecutionPlan,
     HLLConfig,
+    HybridBank,
+    HybridWindowedBank,
     HyperLogLog,
+    MultiResWindowedBank,
     SketchBank,
+    WindowedBank,
     estimate_many,
     reference_plan,
     update_many,

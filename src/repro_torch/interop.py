@@ -3,13 +3,18 @@
 There are no weights: a sketch's state is its registers and its exact item
 counters, exchanged as numpy arrays in the reference's own layout --
 uint8 registers, (m,) or (B, m), and uint32 (hi, lo) counter limbs, (2,) or
-(B, 2).  Wire bytes (RHLL, RHLB) need nothing here: both packages write and
-read the same formats.
+(B, 2).  A ``HybridBank`` crosses as its settled fields (``pair_buf``,
+``pair_len``, ``dense_block``, ``slot_map``, ``n_items``, ``threshold``) and
+a ``WindowedBank`` as (W, B, m) registers, (W, B, 2) limbs, ``cursor`` and
+``epochs``, in dicts keyed by the reference's field names.  Hidden state
+(the ring's incremental fold, the fold caches, an unsettled append log)
+never crosses: it rebuilds on the other side.  Wire bytes (RHLL, RHLB,
+RHLW) need nothing here: both packages write and read the same formats.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -18,6 +23,8 @@ from repro_torch.sketch import hll
 from repro_torch.sketch.bank import SketchBank
 from repro_torch.sketch.carrier import HyperLogLog
 from repro_torch.sketch.hll import HLLConfig
+from repro_torch.sketch.sparse import HybridBank, _check_threshold
+from repro_torch.sketch.window import WindowedBank, _validate_epoch_ring
 
 
 def from_reference_state(
@@ -50,4 +57,78 @@ def to_reference_state(x: Union[HyperLogLog, SketchBank]) -> Tuple[np.ndarray, n
     return (
         x.registers.detach().cpu().numpy().astype(np.uint8),
         x.n_items.detach().cpu().numpy().astype(np.uint32),
+    )
+
+
+def _limbs(n_items: np.ndarray, shape: tuple) -> torch.Tensor:
+    limbs = np.asarray(n_items)
+    if limbs.shape != shape:
+        raise ValueError(f"expected {shape} counter limbs, got {limbs.shape}")
+    return torch.from_numpy(limbs.astype(np.uint32).astype(np.int64))
+
+
+def hybrid_to_reference_state(bank: HybridBank) -> Dict[str, object]:
+    """The settled fields of a ``HybridBank`` as the reference carries them."""
+    s = bank.compact()
+    return {
+        "pair_buf": s.pair_buf.cpu().numpy().astype(np.int32),
+        "pair_len": s.pair_len.cpu().numpy().astype(np.int32),
+        "dense_block": s.dense_block.cpu().numpy().astype(np.uint8),
+        "slot_map": s.slot_map.cpu().numpy().astype(np.int32),
+        "n_items": s.n_items.cpu().numpy().astype(np.uint32),
+        "threshold": int(s.threshold),
+    }
+
+
+def hybrid_from_reference_state(
+    state: Dict[str, object], p: int, hash_bits: int, seed: int = 0, device=None
+) -> HybridBank:
+    """A ``HybridBank`` from the reference's settled fields (see above)."""
+    cfg = HLLConfig(p=p, hash_bits=hash_bits, seed=seed)
+    pair_buf = np.array(state["pair_buf"], dtype=np.int32)
+    rows = pair_buf.shape[0]
+    dense = np.array(state["dense_block"], dtype=np.uint8)
+    if pair_buf.ndim != 2 or dense.ndim != 2 or dense.shape[1] != cfg.m:
+        raise ValueError(f"expected (B, C) pairs and (D, m={cfg.m}) dense rows")
+    device = hll.resolve_device(device)
+    return HybridBank(
+        torch.from_numpy(pair_buf).to(device),
+        torch.from_numpy(np.array(state["pair_len"], dtype=np.int32).reshape(rows)).to(device),
+        torch.from_numpy(dense).to(device),
+        torch.from_numpy(np.array(state["slot_map"], dtype=np.int32).reshape(rows)).to(device),
+        _limbs(state["n_items"], (rows, 2)).to(device),
+        cfg,
+        _check_threshold(int(state["threshold"]), cfg),
+    )
+
+
+def window_to_reference_state(win: WindowedBank) -> Dict[str, object]:
+    """A ``WindowedBank``'s ring as the reference carries it."""
+    return {
+        "registers": win.registers.cpu().numpy().astype(np.uint8),
+        "n_items": win.n_items.cpu().numpy().astype(np.uint32),
+        "cursor": int(win.cursor),
+        "epochs": np.asarray(win.epochs, dtype=np.int32),
+    }
+
+
+def window_from_reference_state(
+    state: Dict[str, object], p: int, hash_bits: int, seed: int = 0, device=None
+) -> WindowedBank:
+    """A ``WindowedBank`` from the reference's ring (see above)."""
+    cfg = HLLConfig(p=p, hash_bits=hash_bits, seed=seed)
+    regs = np.array(state["registers"], dtype=np.uint8)
+    if regs.ndim != 3 or regs.shape[2] != cfg.m:
+        raise ValueError(f"expected (W, B, m={cfg.m}) registers, got {regs.shape}")
+    window = regs.shape[0]
+    cursor = int(state["cursor"])
+    epochs = np.asarray(state["epochs"]).astype(np.int64).reshape(window)
+    _validate_epoch_ring(epochs, cursor, window)
+    device = hll.resolve_device(device)
+    return WindowedBank(
+        torch.from_numpy(regs).to(device),
+        _limbs(state["n_items"], regs.shape[:2] + (2,)).to(device),
+        cursor,
+        epochs.astype(np.int32),
+        cfg,
     )

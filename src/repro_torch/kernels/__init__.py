@@ -6,6 +6,9 @@ One module per TPU kernel of the reference (``repro/kernels``):
   hll_fused.hll_update_fused        <- hll_fused.py::hll_update_fused
   bucket_fold.bucket_fold           <- bucket_fold.py::bucket_fold
   bank_scatter.bank_scatter_max     <- bank_scatter.py::bank_scatter_max
+  sparse_scatter.sparse_scatter_coo <- sparse_scatter.py::sparse_scatter_coo
+  window_fold.window_fold_max       <- window_fold.py::window_fold_max
+  window_fold.window_merge_max      <- window_fold.py::window_merge_max
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.  Each wrapper counts its launches in a plain
@@ -25,6 +28,9 @@ KERNELS = {
     "hll_update_fused": ("hll_fused", "hll_update_fused"),
     "bucket_fold": ("bucket_fold", "bucket_fold"),
     "bank_scatter_max": ("bank_scatter", "bank_scatter_max"),
+    "sparse_scatter_coo": ("sparse_scatter", "sparse_scatter_coo"),
+    "window_fold_max": ("window_fold", "window_fold_max"),
+    "window_merge_max": ("window_fold", "window_merge_max"),
 }
 
 

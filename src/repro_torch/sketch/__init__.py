@@ -1,8 +1,8 @@
 """repro_torch.sketch -- the public API of the HLL engine on PyTorch.
 
-The port of ``repro.sketch`` for the main path: single sketches and keyed
-``SketchBank``s, each ingested through an ``ExecutionPlan`` and finalized
-by the estimator registry.
+The port of ``repro.sketch``: single sketches, keyed ``SketchBank``s,
+sparse/dense ``HybridBank``s and the windowed rings, each ingested through
+an ``ExecutionPlan`` and finalized by the estimator registry.
 
     from repro_torch.sketch import HyperLogLog, HLLConfig, ExecutionPlan
 
@@ -15,6 +15,12 @@ by the estimator registry.
     bank = SketchBank.empty(1024, HLLConfig())
     bank = bank.update_many(keys, items)                    # hash + scatter kernels
     ests = bank.estimate_many()
+
+    hyb = HybridBank.empty(16384, HLLConfig(p=12))          # sparse rows, promoted
+    hyb = hyb.update_many(keys, items)                      # at m // 4 buckets
+    win = WindowedBank.empty(64, 1024, HLLConfig(p=12))     # (W, B, m) ring
+    win = win.observe(keys, items).advance()
+    ests = win.estimate_window(last_k=16)                   # window_fold kernel
 
 Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.  Every
 plan gives bit-identical registers on the same stream (DESIGN.md §3).
@@ -52,22 +58,38 @@ from repro_torch.sketch.plan import (  # noqa: F401
     available_backends,
     available_bank_backends,
     example_plans,
+    SparseDedup,
+    available_sparse_backends,
+    available_window_backends,
+    available_window_merge_backends,
     get_backend,
     get_bank_backend,
+    get_sparse_backend,
+    get_window_backend,
+    get_window_merge_backend,
     reference_plan,
     register_backend,
     register_bank_backend,
+    register_sparse_backend,
+    register_window_backend,
+    register_window_merge_backend,
 )
 
 # importing backends registers the built-in "torch"/"cuda"/"cuda_pipelined"
 # entries; it must come after .plan (registry) and .hll (primitives).
 from repro_torch.sketch import backends  # noqa: F401  (registration side effect)
-from repro_torch.sketch.dispatch import update_registers  # noqa: F401
+from repro_torch.sketch.dispatch import dedup_pairs, update_registers  # noqa: F401
 from repro_torch.sketch.carrier import HyperLogLog  # noqa: F401
 from repro_torch.sketch.bank import (  # noqa: F401
     SketchBank,
     update_bank_registers,
     update_many,
+)
+from repro_torch.sketch.sparse import HybridBank, default_threshold  # noqa: F401
+from repro_torch.sketch.window import (  # noqa: F401
+    HybridWindowedBank,
+    MultiResWindowedBank,
+    WindowedBank,
 )
 from repro_torch.sketch.setops import (  # noqa: F401
     difference_estimate,

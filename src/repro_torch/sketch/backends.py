@@ -13,6 +13,18 @@ Bank ingest (DESIGN.md §9): ``torch`` is one scatter-max over the flattened
 (key, bucket) cells; ``cuda`` and ``cuda_pipelined`` run the hash_rank
 kernel, then the bank_scatter kernel.
 
+Three more axes carry the hybrid and windowed carriers, with the same three
+names on each:
+
+  window fold   (DESIGN.md §11)  torch: where + amax over the W axis;
+                                 cuda*: the window_fold_max kernel
+  window merge  (DESIGN.md §14)  torch: amax over the K fragments;
+                                 cuda*: the window_merge_max kernel
+  sparse dedup  (DESIGN.md §12)  torch: a two-pass stable argsort, or a
+                                 scatter-amax into zeroed cells once the
+                                 stream rivals the bank; cuda*: the
+                                 sparse_scatter_coo kernel (cells layout)
+
 The reference pads streams to its kernels' (rows, 128) tiles; the CUDA
 wrappers take flat streams of any length and mask their own ragged edge,
 so no padding happens here.  On CPU tensors every kernel wrapper runs its
@@ -28,8 +40,12 @@ from repro_torch.sketch.hll import HLLConfig
 from repro_torch.sketch.plan import (
     DEFAULT_PIPELINES,
     ExecutionPlan,
+    SparseDedup,
     register_backend,
     register_bank_backend,
+    register_sparse_backend,
+    register_window_backend,
+    register_window_merge_backend,
 )
 
 
@@ -40,6 +56,12 @@ def _kernels():
     from repro_torch.kernels import bank_scatter, bucket_fold, hash_rank, hll_fused
 
     return hash_rank, hll_fused, bucket_fold, bank_scatter
+
+
+def _ring_kernels():
+    from repro_torch.kernels import sparse_scatter, window_fold
+
+    return sparse_scatter, window_fold
 
 
 # ----------------------------------------------------------------------------
@@ -212,3 +234,118 @@ def _cuda_pipelined_bank_backend(registers, keys, items, cfg: HLLConfig, plan: E
     # the reference splits the bank into k row blocks to stay under its
     # VMEM cap; the atomic scatter has no cap, so k pipelines are one launch
     return bank_update(registers, keys, items, cfg)
+
+
+# ----------------------------------------------------------------------------
+# WindowedBank ring folds (masked max over the W axis; DESIGN.md §11)
+# ----------------------------------------------------------------------------
+
+
+@register_window_backend("torch")
+def _torch_window_backend(ring, mask, cfg: HLLConfig, plan: ExecutionPlan):
+    _, _window = _ring_kernels()
+    return _window.window_fold_max_plain(ring, mask)
+
+
+@register_window_backend("cuda")
+def _cuda_window_backend(ring, mask, cfg: HLLConfig, plan: ExecutionPlan):
+    _, _window = _ring_kernels()
+    return _window.window_fold_max(ring, mask)
+
+
+@register_window_backend("cuda_pipelined")
+def _cuda_pipelined_window_backend(ring, mask, cfg: HLLConfig, plan: ExecutionPlan):
+    # the reference tiles the fold over k row blocks to stay under its VMEM
+    # cap; the kernel has no cap, so k pipelines are one launch
+    _, _window = _ring_kernels()
+    return _window.window_fold_max(ring, mask)
+
+
+# ----------------------------------------------------------------------------
+# incremental window merges (K fold fragments -> one bank; DESIGN.md §14)
+# ----------------------------------------------------------------------------
+
+
+@register_window_merge_backend("torch")
+def _torch_window_merge_backend(parts, cfg: HLLConfig, plan: ExecutionPlan):
+    _, _window = _ring_kernels()
+    return _window.window_merge_max_plain(parts)
+
+
+@register_window_merge_backend("cuda")
+def _cuda_window_merge_backend(parts, cfg: HLLConfig, plan: ExecutionPlan):
+    _, _window = _ring_kernels()
+    return _window.window_merge_max(parts)
+
+
+@register_window_merge_backend("cuda_pipelined")
+def _cuda_pipelined_window_merge_backend(parts, cfg: HLLConfig, plan: ExecutionPlan):
+    _, _window = _ring_kernels()
+    return _window.window_merge_max(parts)
+
+
+# ----------------------------------------------------------------------------
+# HybridBank sparse dedup (append-buffer compaction; DESIGN.md §12)
+# ----------------------------------------------------------------------------
+
+# the torch dedup picks its layout by stream-vs-bank size: below this
+# fraction of the bank's rows*m cell count the O(n log n) sort wins, above
+# it the O(n + rows*m) scatter does (the reference's crossover, measured on
+# its CPU)
+_SPARSE_CELLS_CROSSOVER = 32
+
+
+def _sparse_valid(row, bucket, rank, rows: int, m: int) -> torch.Tensor:
+    # the reference drops rows outside [0, rows) only; buckets outside
+    # [0, m) and ranks <= 0 never come out of the hash, and dropping them
+    # too keeps both layouts (and the kernel) in agreement on any input
+    return (row >= 0) & (row < rows) & (bucket >= 0) & (bucket < m) & (rank > 0)
+
+
+def sparse_merge_sorted(row, bucket, rank, rows: int, m: int):
+    """Sorted-stream dedup: two-pass stable argsort over (row, bucket) cells.
+
+    ONE stable sort by rank ascending, then (stably) by ``row * m + bucket``
+    cell id, so within each equal-cell run ranks ascend and the LAST element
+    carries the cell's max.  Dropped entries sort to a trailing sentinel
+    cell and never survive.  Cost tracks the stream, not the bank.
+    """
+    valid = _sparse_valid(row, bucket, rank, rows, m)
+    cell = torch.where(valid, row * m + bucket, rows * m)
+    order1 = torch.argsort(rank, stable=True)
+    cell1, rank1 = cell[order1], rank[order1]
+    order2 = torch.argsort(cell1, stable=True)
+    cell_s, rank_s = cell1[order2], rank1[order2]
+    is_last = torch.ones_like(cell_s, dtype=torch.bool)
+    is_last[:-1] = cell_s[1:] != cell_s[:-1]
+    survivor = is_last & (cell_s < rows * m)
+    row_s = torch.where(survivor, cell_s // m, rows).to(torch.int64)
+    distinct = torch.bincount(row_s, minlength=rows + 1)[:rows].to(torch.int32)
+    return cell_s, rank_s, survivor, distinct
+
+
+@register_sparse_backend("torch")
+def _torch_sparse_backend(row, bucket, rank, rows, cfg: HLLConfig, plan: ExecutionPlan):
+    m = cfg.m
+    if row.shape[0] * _SPARSE_CELLS_CROSSOVER >= rows * m:
+        _sparse, _ = _ring_kernels()
+        cells, distinct = _sparse.sparse_scatter_coo_plain(row, bucket, rank, rows, m)
+        return SparseDedup(distinct=distinct, cells=cells)
+    cell_s, rank_s, survivor, distinct = sparse_merge_sorted(row, bucket, rank, rows, m)
+    return SparseDedup(distinct=distinct, cell_s=cell_s, rank_s=rank_s, survivor=survivor)
+
+
+@register_sparse_backend("cuda")
+def _cuda_sparse_backend(row, bucket, rank, rows, cfg: HLLConfig, plan: ExecutionPlan):
+    _sparse, _ = _ring_kernels()
+    cells, distinct = _sparse.sparse_scatter_coo(row, bucket, rank, rows, cfg.m)
+    return SparseDedup(distinct=distinct, cells=cells)
+
+
+@register_sparse_backend("cuda_pipelined")
+def _cuda_pipelined_sparse_backend(row, bucket, rank, rows, cfg: HLLConfig, plan: ExecutionPlan):
+    # the reference tiles the dedup over k row blocks under its VMEM cap;
+    # the atomic scatter has no cap, so k pipelines are one launch
+    _sparse, _ = _ring_kernels()
+    cells, distinct = _sparse.sparse_scatter_coo(row, bucket, rank, rows, cfg.m)
+    return SparseDedup(distinct=distinct, cells=cells)

@@ -16,8 +16,9 @@ Key-routing contract (DESIGN.md §9):
 * every registered bank backend is bit-identical to the per-sketch loop
   ``for b: bank[b].update(items[keys == b])``.
 
-Serialization is the RHLB v1 format, byte-identical to the reference's.
-``density`` and ``to_hybrid`` arrive with the HybridBank slice (ROADMAP A.6).
+Serialization is the RHLB v1 format, byte-identical to the reference's;
+``to_hybrid`` demotes a bank to the sparse/dense ``HybridBank`` layout
+(DESIGN.md §12), whose RHLB v2 format ``from_bytes`` here still rejects.
 Entry points run on the card unless the caller asks for the CPU:
 ``empty`` and ``from_bytes`` default to ``torch.device("cuda")``.
 """
@@ -57,6 +58,18 @@ def _flat_keys_items(keys, items, device):
             f"must flatten to the same length"
         )
     return flat_keys, flat_items
+
+
+def _counter_add_rows(limbs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """(B, 2) int64 (hi, lo) limb pairs + (B,) non-negative counts, exact to 2^64."""
+    return u64.add(limbs, u64.limbs(counts.to(torch.int64)))
+
+
+def _routed_counts(flat_keys: torch.Tensor, rows: int) -> torch.Tensor:
+    """(rows,) int64 count of the keys in [0, rows); others are dropped."""
+    valid = (flat_keys >= 0) & (flat_keys < rows)
+    routed = torch.where(valid, flat_keys, rows).to(torch.int64)
+    return torch.bincount(routed, minlength=rows + 1)[:rows]
 
 
 # ----------------------------------------------------------------------------
@@ -153,8 +166,41 @@ class SketchBank:
     @property
     def counts(self) -> np.ndarray:
         """(B,) exact per-row observation counts as uint64."""
-        limbs = self.n_items.cpu().numpy().astype(np.uint64)
-        return (limbs[:, 0] << np.uint64(32)) | limbs[:, 1]
+        return u64.to_numpy(self.n_items)
+
+    @property
+    def nbytes(self) -> int:
+        """Storage footprint of the dense representation, in the reference's
+        layout (uint8 registers + uint32 counter limbs, 8 B per row), so the
+        two packages report the same sizes."""
+        return int(self.registers.numel() + 8 * len(self))
+
+    def density(self) -> dict:
+        """Storage introspection, schema-compatible with the hybrid bank's.
+
+        A dense bank is all-dense by construction; ``occupancy_mean``
+        reports how full the registers actually are, which is what decides
+        whether ``to_hybrid()`` would pay off (DESIGN.md §12).
+        """
+        rows = len(self)
+        occ = (self.registers > 0).sum(dim=1, dtype=torch.int64).cpu().numpy()
+        return {
+            "rows": rows,
+            "dense_rows": rows,
+            "sparse_rows": 0,
+            "capacity": 0,
+            "threshold": None,
+            "occupancy_mean": float(occ.mean() / self.cfg.m) if rows else 0.0,
+            "nbytes": self.nbytes,
+            "dense_nbytes": self.nbytes,
+            "reduction": 1.0,
+        }
+
+    def to_hybrid(self, threshold: Optional[int] = None, dense_rows=None):
+        """Demote to the sparse/dense ``HybridBank`` layout (DESIGN.md §12)."""
+        from repro_torch.sketch.sparse import HybridBank
+
+        return HybridBank.from_dense(self, threshold, dense_rows=dense_rows)
 
     # ------------------------------------------------------------------
     # aggregation (paper phase 3, bank-wide)
@@ -176,16 +222,12 @@ class SketchBank:
             return self
         # obs site (bank.update_many.batch_items) waits for ROADMAP A.9
         regs = update_bank_registers(self.registers, flat_keys, flat_items, self.cfg, plan)
-        rows = len(self)
         # count only the observations that actually landed (dropped keys
         # must not inflate a row's exact counter)
-        valid = (flat_keys >= 0) & (flat_keys < rows)
-        routed = torch.where(valid, flat_keys, rows).to(torch.int64)
-        counts = torch.bincount(routed, minlength=rows + 1)[:rows]
         return dataclasses.replace(
             self,
             registers=regs,
-            n_items=u64.add(self.n_items, u64.limbs(counts)),
+            n_items=_counter_add_rows(self.n_items, _routed_counts(flat_keys, len(self))),
         )
 
     def merge(self, other: "SketchBank") -> "SketchBank":
@@ -261,8 +303,8 @@ class SketchBank:
             raise ValueError(f"bad magic {magic!r}; not a serialized bank")
         if version != _BANK_VERSION:
             hint = (
-                "; version 2 is the hybrid sparse format, which the port "
-                "reads once the HybridBank slice lands"
+                "; version 2 is the hybrid sparse format — parse it with "
+                "repro_torch.sketch.sparse.HybridBank.from_bytes"
                 if version == 2
                 else ""
             )
@@ -279,11 +321,10 @@ class SketchBank:
             )
         device = hll.resolve_device(device)
         raw_counts = np.frombuffer(data[_BANK_HEADER.size : counts_end], dtype="<u8")
-        limbs = np.stack([raw_counts >> np.uint64(32), raw_counts & np.uint64(u64.MASK32)], axis=-1)
         regs = np.frombuffer(data[counts_end:], dtype=np.uint8).reshape(rows, cfg.m)
         return cls(
             torch.from_numpy(regs.copy()).to(device),
-            torch.from_numpy(limbs.astype(np.int64)).to(device),
+            u64.from_numpy(raw_counts, device),
             cfg,
         )
 

@@ -1,7 +1,7 @@
 """The single aggregation entry point: update_registers(regs, items, cfg, plan).
 
-Port of ``repro/sketch/dispatch.py::update_registers`` for
-placement="local" (the plan itself refuses the other placements until the
+Port of ``repro/sketch/dispatch.py::update_registers`` and ``dedup_pairs``
+for placement="local" (the plan itself refuses the other placements until the
 placement slice, ROADMAP A.10).  The ``ExecutionPlan`` chooses the backend,
 and every plan yields bit-identical registers on the same stream
 (DESIGN.md §3).
@@ -15,7 +15,13 @@ import torch
 
 from repro_torch.sketch import hll
 from repro_torch.sketch.hll import HLLConfig
-from repro_torch.sketch.plan import DEFAULT_PLAN, ExecutionPlan, get_backend
+from repro_torch.sketch.plan import (
+    DEFAULT_PLAN,
+    ExecutionPlan,
+    SparseDedup,
+    get_backend,
+    get_sparse_backend,
+)
 
 
 def update_registers(
@@ -37,3 +43,32 @@ def update_registers(
         # observes the batch size below; obs sites wait for ROADMAP A.9
         return registers
     return backend(registers, flat, cfg, plan)
+
+
+def dedup_pairs(
+    row: torch.Tensor,
+    bucket: torch.Tensor,
+    rank: torch.Tensor,
+    rows: int,
+    cfg: HLLConfig,
+    plan: Optional[ExecutionPlan] = None,
+) -> SparseDedup:
+    """Dedup a (row, bucket, rank) int32 triple stream under ``plan`` (DESIGN.md §12).
+
+    The HybridBank compaction's dispatch seam, mirroring
+    :func:`update_registers`: the sparse-capable backend registered under
+    ``plan.backend`` collapses the combined live-pair + append-buffer
+    stream to each row's distinct bucket -> max-rank map and per-row
+    distinct counts.  A backend name with no sparse registration (a plugin
+    bank backend) falls back to the torch dedup: every sparse path is
+    bit-identical by contract.  "torch", "cuda" and "cuda_pipelined" all
+    register, so the fallback never hides a kernel.
+    """
+    plan = (DEFAULT_PLAN if plan is None else plan).validate()
+    try:
+        backend = get_sparse_backend(plan.backend)
+    except ValueError:
+        # the reference counts this (dispatch.sparse_dedup.fallback); obs
+        # sites wait for ROADMAP A.9
+        backend = get_sparse_backend("torch")
+    return backend(row, bucket, rank, rows, cfg, plan)

@@ -1,8 +1,9 @@
 """ExecutionPlan: config-driven dispatch for the sketch aggregation phase.
 
-Port of ``repro/sketch/plan.py``, with the two registry axes the main path
-needs (single-sketch ingest and bank ingest); the other five axes arrive
-with their slices.  The backends:
+Port of ``repro/sketch/plan.py``, with five of its seven registry axes:
+single-sketch ingest, bank ingest, the window ring fold, the incremental
+window merge and the HybridBank sparse dedup.  The two count-min axes
+arrive with the count-min slice (ROADMAP A.8).  The backends:
 
   backend    "torch"            eager PyTorch scatter-max, on the CPU or
                                 the card (the reference's "jnp")
@@ -31,7 +32,7 @@ so the default plan still works there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.sketch.estimators import DEFAULT_ESTIMATOR, get_estimator
 
@@ -47,6 +48,53 @@ _BACKENDS: Dict[str, Callable] = {}
 # counterparts, so one ExecutionPlan drives both `update_registers` and
 # `update_many` (DESIGN.md §9).
 _BANK_BACKENDS: Dict[str, Callable] = {}
+
+# backend name -> fn(ring_registers, mask, cfg, plan) -> (B, m) registers.
+# Windowed folds collapse the (W, B, m) ring of a WindowedBank into one
+# scratch bank with a single masked max-reduce (DESIGN.md §11); the (W,)
+# mask lies on the ring's device.
+_WINDOW_BACKENDS: Dict[str, Callable] = {}
+
+# backend name -> fn(parts, cfg, plan) -> (B, m) registers.
+# The read side of the incremental window decomposition (DESIGN.md §14):
+# ``parts`` is a tiny (K, B, m) stack of already-folded fragments (prefix
+# top, suffix accumulator, dirty head bucket) merged by max.
+_WINDOW_MERGE_BACKENDS: Dict[str, Callable] = {}
+
+
+class SparseDedup(NamedTuple):
+    """Canonical dedup of a (row, bucket, rank) triple stream (DESIGN.md §12).
+
+    A sparse backend answers "what is each row's distinct bucket -> max-rank
+    map" for the HybridBank compaction step, in one of two layouts (both
+    enumerate every live row's buckets in ascending order, so the compacted
+    COO pairs, promoted registers and distinct counts derived from either
+    are bit-identical):
+
+    * **sorted stream** (``cells=None``): ``cell_s`` holds ``row*m + bucket``
+      ids sorted ascending with dropped entries at a trailing sentinel,
+      ``rank_s`` the co-sorted ranks, and ``survivor`` marks the last
+      (max-rank) entry of each live cell run -- the argsort form, which
+      wins when the stream is small next to the bank.
+    * **dense cells** (``cells`` set): ``cells`` is the (rows, m) int32
+      max-rank map itself (0 = untouched bucket) and the stream fields are
+      None -- the scatter form (a scatter-amax, or the sparse_scatter CUDA
+      kernel), which wins once the stream rivals the bank's cell count.
+
+    ``distinct`` is always the (rows,) int32 per-row distinct-bucket count.
+    """
+
+    distinct: Any
+    cells: Optional[Any] = None
+    cell_s: Optional[Any] = None
+    rank_s: Optional[Any] = None
+    survivor: Optional[Any] = None
+
+
+# backend name -> fn(row, bucket, rank, rows, cfg, plan) -> SparseDedup.
+# The HybridBank append-buffer compaction (DESIGN.md §12) dispatches its
+# dedup through this axis.
+_SPARSE_BACKENDS: Dict[str, Callable] = {}
 
 
 def register_backend(name: str) -> Callable[[Callable], Callable]:
@@ -81,6 +129,69 @@ def register_bank_backend(name: str) -> Callable[[Callable], Callable]:
     return deco
 
 
+def register_window_backend(name: str) -> Callable[[Callable], Callable]:
+    """Decorator: register a windowed ring-fold path under ``name``.
+
+    The signature is fn(ring_registers, mask, cfg, plan) -> (B, m)
+    registers, where ``ring_registers`` is the (W, B, m) ring of a
+    ``WindowedBank`` and ``mask`` a (W,) bool on its device selecting the
+    live buckets.  Every entry must be bit-identical to merging the live
+    buckets one by one.  A backend without a window entry still works for
+    flat plans; ``estimate_window`` raises a targeted error for it.
+    """
+
+    def deco(fn: Callable) -> Callable:
+        if name in _WINDOW_BACKENDS:
+            raise ValueError(f"window backend {name!r} already registered")
+        # obs wrap_backend site left out until the obs slice (ROADMAP A.9)
+        _WINDOW_BACKENDS[name] = fn
+        return fn
+
+    return deco
+
+
+def register_window_merge_backend(name: str) -> Callable[[Callable], Callable]:
+    """Decorator: register an incremental window-merge path under ``name``.
+
+    The signature is fn(parts, cfg, plan) -> (B, m) registers, where
+    ``parts`` is a (K, B, m) stack of fold fragments (DESIGN.md §14).
+    Entries must be bit-identical to ``torch.amax(parts, 0)``.  A backend
+    needs no entry of its own to stay incremental-capable:
+    ``get_window_merge_backend`` falls back to the torch merge, which is
+    exact for any fragment grouping by the max-lattice laws (DESIGN.md §6).
+    """
+
+    def deco(fn: Callable) -> Callable:
+        if name in _WINDOW_MERGE_BACKENDS:
+            raise ValueError(f"window merge backend {name!r} already registered")
+        # obs wrap_backend site left out until the obs slice (ROADMAP A.9)
+        _WINDOW_MERGE_BACKENDS[name] = fn
+        return fn
+
+    return deco
+
+
+def register_sparse_backend(name: str) -> Callable[[Callable], Callable]:
+    """Decorator: register a HybridBank dedup/compaction path under ``name``.
+
+    The signature is fn(row, bucket, rank, rows, cfg, plan) ->
+    :class:`SparseDedup`, where the int32 triple tensors carry the combined
+    live-pair + append-buffer stream (entries with ``row`` outside
+    [0, rows) are padding and must not survive).  Every entry must produce
+    compacted pairs, promoted registers and distinct counts bit-identical
+    to the torch entry.
+    """
+
+    def deco(fn: Callable) -> Callable:
+        if name in _SPARSE_BACKENDS:
+            raise ValueError(f"sparse backend {name!r} already registered")
+        # obs wrap_backend site left out until the obs slice (ROADMAP A.9)
+        _SPARSE_BACKENDS[name] = fn
+        return fn
+
+    return deco
+
+
 def get_backend(name: str) -> Callable:
     try:
         return _BACKENDS[name]
@@ -100,12 +211,61 @@ def get_bank_backend(name: str) -> Callable:
         ) from None
 
 
+def get_window_backend(name: str) -> Callable:
+    try:
+        return _WINDOW_BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"backend {name!r} has no window fold path; window-capable: "
+            f"{sorted(_WINDOW_BACKENDS)}"
+        ) from None
+
+
+def get_window_merge_backend(name: str) -> Callable:
+    """The incremental merge entry for ``name``, or the torch fallback.
+
+    This axis never raises for an unregistered name: fold fragments merge
+    exactly under the torch max-reduce whatever backend produced them.
+    Every built-in backend ("torch", "cuda", "cuda_pipelined") registers
+    its own entry, so the fallback serves only plugin backends.
+    """
+    fn = _WINDOW_MERGE_BACKENDS.get(name)
+    if fn is not None:
+        return fn
+    try:
+        return _WINDOW_MERGE_BACKENDS["torch"]
+    except KeyError:  # pragma: no cover - backends.py always registers torch
+        raise ValueError("no window merge backends registered") from None
+
+
+def get_sparse_backend(name: str) -> Callable:
+    try:
+        return _SPARSE_BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"backend {name!r} has no sparse dedup path; sparse-capable: "
+            f"{sorted(_SPARSE_BACKENDS)}"
+        ) from None
+
+
 def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_BACKENDS))
 
 
 def available_bank_backends() -> Tuple[str, ...]:
     return tuple(sorted(_BANK_BACKENDS))
+
+
+def available_window_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_WINDOW_BACKENDS))
+
+
+def available_window_merge_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_WINDOW_MERGE_BACKENDS))
+
+
+def available_sparse_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_SPARSE_BACKENDS))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +283,11 @@ class ExecutionPlan:
     interpret: Optional[bool] = None
     # phase-4 finalizer ("original" | "ertl_improved" | "ertl_mle" | plugins)
     estimator: str = DEFAULT_ESTIMATOR
-    # storage hint for the hybrid carriers of a later slice (ROADMAP A.6)
+    # storage hint for hybrid carriers (DESIGN.md §12): rows of a
+    # HybridBank built under this plan promote from the sparse COO layout
+    # to dense registers once their distinct-bucket count exceeds this.
+    # None defers to the carrier default (m // 4); the carrier re-validates
+    # against its config (must stay <= m // 2 for the LC-regime guarantee).
     sparse_threshold: Optional[int] = None
 
     def __post_init__(self):

@@ -9,7 +9,8 @@ survive:
 * ``clz32`` / ``clz``: count leading zeros, which PyTorch has no operator
   for;
 * the (hi, lo) limb add of the exact item counters, which count to 2^64
-  and so do not fit an int64 (``add``).
+  and so do not fit an int64 (``add``), and their conversion to and from
+  host uint64 arrays (``to_numpy``, ``from_numpy``).
 
 Hazard: on the CPU, ``>>`` and ``<<`` on ``torch.uint64`` raise
 ``NotImplementedError``, while int64 ``*`` and ``+`` wrap modulo 2^64.  So
@@ -20,6 +21,7 @@ mask (:func:`shr`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -96,3 +98,16 @@ def to_py(pair) -> int:
     """A (2,) limb pair -> python int."""
     hi, lo = (int(v) for v in pair.tolist())
     return (hi << 32) | lo
+
+
+def to_numpy(limbs: torch.Tensor) -> np.ndarray:
+    """(..., 2) int64 (hi, lo) limb pairs -> (...) uint64 on the host."""
+    host = limbs.cpu().numpy().astype(np.uint64)
+    return (host[..., 0] << np.uint64(32)) | host[..., 1]
+
+
+def from_numpy(values, device=None) -> torch.Tensor:
+    """(...) uint64 values -> (..., 2) int64 (hi, lo) limb pairs on ``device``."""
+    values = np.asarray(values, dtype=np.uint64)
+    limbs = np.stack([values >> np.uint64(32), values & np.uint64(MASK32)], axis=-1)
+    return torch.from_numpy(limbs.astype(np.int64)).to(device)

@@ -7,7 +7,11 @@ or the reference's jnp path at p = 16:
 
   bucket_fold       several (k, m), uint8 and int32 partials;
   hll_update_fused  n_valid padding and accumulation onto existing registers;
-  bank_scatter_max  foreign keys (-1, B, beyond) and rank-0 padding dropped.
+  bank_scatter_max  foreign keys (-1, B, beyond) and rank-0 padding dropped;
+  sparse_scatter_coo  rows -1 and B and rank-0 entries dropped, exact
+                    per-row distinct counts;
+  window_fold_max   masks all live, a suffix, none live, W = 1;
+  window_merge_max  K = 3 fold fragments.
 
 The ``gpu`` tests hold each CUDA kernel to its plain version on the card.
 """
@@ -21,9 +25,11 @@ from repro.kernels import bank_scatter as ref_bank_scatter
 from repro.kernels import bucket_fold as ref_bucket_fold
 from repro.kernels import hll_fused as ref_hll_fused
 from repro.kernels import ref as ref_oracles
-from repro.sketch.backends import bank_update_jnp
+from repro.sketch.backends import bank_update_jnp, sparse_merge, sparse_merge_cells
+from repro.sketch.backends import window_fold as ref_window_fold
+from repro.sketch.backends import window_fold_jnp, window_merge, window_merge_jnp
 from repro.sketch.hll import HLLConfig as RefConfig
-from repro_torch.kernels import bank_scatter, bucket_fold, hll_fused
+from repro_torch.kernels import bank_scatter, bucket_fold, hll_fused, sparse_scatter, window_fold
 from repro_torch.sketch import hll
 from repro_torch.sketch.hll import HLLConfig
 
@@ -186,6 +192,91 @@ def test_bank_scatter_max_drops_foreign_keys_without_trace():
 
 
 # ----------------------------------------------------------------------------
+# sparse_scatter_coo
+# ----------------------------------------------------------------------------
+
+
+def _triples(n, rows, m, seed):
+    """(row, bucket, rank) int32 with rows -1 and B and rank-0 entries mixed in."""
+    rng = np.random.default_rng(seed)
+    row = rng.integers(-1, rows + 1, n).astype(np.int32)
+    row[:2] = [-1, rows][: min(n, 2)]
+    bucket = rng.integers(0, m, n).astype(np.int32)
+    rank = rng.integers(0, 8, n).astype(np.int32)
+    return row, bucket, rank
+
+
+@pytest.mark.parametrize("p,rows,row_block", [(4, 9, 4), (8, 6, 16), (10, 5, 2)])
+@pytest.mark.parametrize("n", [1, 127, 2051])
+def test_sparse_scatter_coo_matches_reference_kernel(p, rows, row_block, n):
+    cfg = RefConfig(p=p)
+    row, bucket, rank = _triples(n, rows, cfg.m, p + n)
+    cells, distinct = sparse_scatter.sparse_scatter_coo(*map(torch.from_numpy, (row, bucket, rank)), rows, cfg.m)
+    want_cells, want_distinct = sparse_merge(
+        jnp.asarray(row), jnp.asarray(bucket), jnp.asarray(rank), rows, cfg, row_block=row_block, interpret=True
+    )
+    np.testing.assert_array_equal(cells.numpy(), np.asarray(want_cells))
+    np.testing.assert_array_equal(distinct.numpy(), np.asarray(want_distinct))
+    assert cells.dtype == distinct.dtype == torch.int32
+
+
+def test_sparse_scatter_coo_p16_matches_reference_jnp_scatter():
+    rows, m = 3, 1 << 16
+    row, bucket, rank = _triples(5000, rows, m, 16)
+    cells, distinct = sparse_scatter.sparse_scatter_coo(*map(torch.from_numpy, (row, bucket, rank)), rows, m)
+    want_cells, want_distinct = sparse_merge_cells(
+        jnp.asarray(row), jnp.asarray(bucket), jnp.asarray(rank), rows=rows, m=m
+    )
+    np.testing.assert_array_equal(cells.numpy(), np.asarray(want_cells))
+    np.testing.assert_array_equal(distinct.numpy(), np.asarray(want_distinct))
+    with pytest.raises(TypeError, match="int32"):
+        sparse_scatter.sparse_scatter_coo(torch.zeros(2, dtype=torch.int64), *map(torch.from_numpy, (bucket[:2], rank[:2])), rows, m)
+
+
+# ----------------------------------------------------------------------------
+# window_fold_max / window_merge_max
+# ----------------------------------------------------------------------------
+
+
+def _ring(window, rows, m, seed):
+    return np.random.default_rng(seed).integers(0, 50, (window, rows, m)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("window,rows,p", [(1, 3, 8), (5, 4, 8), (8, 3, 10), (4, 2, 12)])
+def test_window_fold_max_matches_reference_kernel(window, rows, p):
+    ring = _ring(window, rows, 1 << p, window + p)
+    masks = [np.ones(window, bool), np.arange(window) >= window // 2, np.zeros(window, bool),
+             np.arange(window) % 2 == 1]
+    for mask in masks:
+        got = window_fold.window_fold_max(torch.from_numpy(ring), torch.from_numpy(mask))
+        want = ref_window_fold(jnp.asarray(ring), jnp.asarray(mask), interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert got.dtype == torch.uint8 and got.shape == ring.shape[1:]
+
+
+def test_window_fold_max_p16_matches_reference_jnp_fold():
+    ring = _ring(6, 2, 1 << 16, 1)
+    mask = np.array([1, 0, 1, 1, 0, 1], bool)
+    got = window_fold.window_fold_max(torch.from_numpy(ring), torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(window_fold_jnp(jnp.asarray(ring), jnp.asarray(mask))))
+    with pytest.raises(ValueError, match=r"mask must be \(6,\)"):
+        window_fold.window_fold_max(torch.from_numpy(ring), torch.ones(5, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("rows,p", [(3, 8), (2, 12), (2, 16)])
+def test_window_merge_max_matches_reference_kernel(rows, p):
+    parts = _ring(3, rows, 1 << p, p)
+    got = window_fold.window_merge_max(torch.from_numpy(parts))
+    if p <= 12:
+        want = window_merge(jnp.asarray(parts), interpret=True)
+    else:
+        want = window_merge_jnp(jnp.asarray(parts))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(TypeError, match="uint8"):
+        window_fold.window_merge_max(torch.from_numpy(parts).to(torch.int32))
+
+
+# ----------------------------------------------------------------------------
 # the CUDA kernels on the card
 # ----------------------------------------------------------------------------
 
@@ -229,3 +320,38 @@ def test_bank_scatter_max_kernel_matches_plain_on_card():
     got = bank_scatter.bank_scatter_max(bank, *args)
     assert bank_scatter.bank_scatter_max.launches == before + 1
     torch.testing.assert_close(got, bank_scatter.bank_scatter_max_plain(bank, *args), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_sparse_scatter_coo_kernel_matches_plain_on_card():
+    _need_card()
+    for p, rows, n in ((4, 37, 127), (12, 2048, 1 << 20), (16, 17, (1 << 20) + 3)):
+        args = [torch.from_numpy(a).cuda() for a in _triples(n, rows, 1 << p, p)]
+        before = sparse_scatter.sparse_scatter_coo.launches
+        got = sparse_scatter.sparse_scatter_coo(*args, rows, 1 << p)
+        assert sparse_scatter.sparse_scatter_coo.launches == before + 1
+        want = sparse_scatter.sparse_scatter_coo_plain(*args, rows, 1 << p)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_window_fold_max_kernel_matches_plain_on_card():
+    _need_card()
+    ring = torch.from_numpy(_ring(16, 64, 1 << 12, 2)).cuda()
+    for live in (16, 4, 0):
+        mask = (torch.arange(16) >= 16 - live).cuda()
+        before = window_fold.window_fold_max.launches
+        got = window_fold.window_fold_max(ring, mask)
+        assert window_fold.window_fold_max.launches == before + 1
+        torch.testing.assert_close(got, window_fold.window_fold_max_plain(ring, mask), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_window_merge_max_kernel_matches_plain_on_card():
+    _need_card()
+    parts = torch.from_numpy(_ring(3, 1024, 1 << 12, 3)).cuda()
+    before = window_fold.window_merge_max.launches
+    got = window_fold.window_merge_max(parts)
+    assert window_fold.window_merge_max.launches == before + 1
+    torch.testing.assert_close(got, window_fold.window_merge_max_plain(parts), rtol=0, atol=0)

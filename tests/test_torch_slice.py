@@ -2,9 +2,11 @@
 
 * One seeded keyed stream, in several chunks, through the port's default
   plan on the CPU and through the reference's default plan: the same final
-  bank, counters, bytes and estimates; likewise one single-sketch stream.
-* ``chip_smoke.py``'s phases rehearsed at a tiny size on the CPU, where
-  every kernel wrapper runs its plain version.
+  bank, counters, bytes and estimates; likewise one single-sketch stream,
+  and one epoch stream through a HybridBank and a WindowedBank.
+* ``chip_smoke.py``'s phases (stream, bank, hybrid, window) rehearsed at
+  a tiny size on the CPU, where every kernel wrapper runs its plain
+  version.
 * ``import repro_torch`` and ``import chip_smoke`` pull in no ``jax`` and
   nothing of ``repro``.
 """
@@ -15,14 +17,17 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from repro.sketch import HyperLogLog as RefHLL
+from repro.sketch import HybridBank as RefHybrid
 from repro.sketch import SketchBank as RefBank
+from repro.sketch import WindowedBank as RefRing
 from repro.sketch.hll import HLLConfig as RefConfig
-from repro_torch import HLLConfig, HyperLogLog, SketchBank
+from repro_torch import HLLConfig, HybridBank, HyperLogLog, SketchBank, WindowedBank
 from repro_torch.kernels import launch_counts, reset_launches
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -59,14 +64,40 @@ def test_single_sketch_stream_through_the_whole_slice_matches_reference():
     assert sk.estimate() == ref.estimate() and sk.count == ref.count
 
 
+def test_hybrid_and_window_slice_matches_reference(monkeypatch):
+    # the reference's windows need jax.core.trace_state_clean (ROADMAP §C)
+    monkeypatch.setattr(jax.core, "trace_state_clean", jax._src.core.trace_state_clean, raising=False)
+    rng = np.random.default_rng(12)
+    rows, cfg, rcfg = 19, HLLConfig(p=8, hash_bits=64), RefConfig(p=8, hash_bits=64)
+    hyb, ref_hyb = HybridBank.empty(rows, cfg, device="cpu"), RefHybrid.empty(rows, rcfg)
+    ring, ref_ring = WindowedBank.empty(4, rows, cfg, device="cpu"), RefRing.empty(4, rows, rcfg)
+    for epoch in range(7):
+        keys = ((rng.zipf(1.2, 1500) - 1) % (rows + 2) - 1).astype(np.int32)
+        items = rng.integers(0, 2**31, 1500, dtype=np.int32)
+        hyb, ref_hyb = hyb.update_many(keys, items), ref_hyb.update_many(jnp.asarray(keys), jnp.asarray(items))
+        ring = ring.observe(keys, items).advance()
+        ref_ring = ref_ring.observe(jnp.asarray(keys), jnp.asarray(items)).advance()
+        np.testing.assert_allclose(ring.estimate_window(2).numpy(), np.asarray(ref_ring.estimate_window(2)),
+                                   rtol=1e-6)
+    assert hyb.to_bytes() == ref_hyb.to_bytes() and ring.to_bytes() == ref_ring.to_bytes()
+    np.testing.assert_allclose(hyb.estimate_many().numpy(), np.asarray(ref_hyb.estimate_many()), rtol=1e-6)
+    assert [hyb.estimate(i) for i in range(rows)] == [ref_hyb.estimate(i) for i in range(rows)]
+
+
 def test_chip_smoke_phases_rehearse_on_the_cpu():
     reset_launches()
-    errs = chip_smoke.phase_kernels("cpu", n=1 << 10, rows=11, configs=((8, 32), (16, 64)))
+    errs = chip_smoke.phase_kernels("cpu", n=1 << 10, rows=11, configs=((8, 32), (16, 64)),
+                                    hybrid_rows=37, window=5)
     assert set(errs) == set(chip_smoke.KERNEL_SOURCES) and max(errs.values()) == 0.0
     stream = chip_smoke.phase_stream("cpu", chunks=2, chunk_items=1 << 11, configs=((10, 64),), pipelines=3)
     assert stream["items"] == 1 << 12 and len(stream["configs"]) == 1
     bank = chip_smoke.phase_bank("cpu", rows=13, ticks=2, tick_items=1 << 11, p=8)
     assert bank["rows"] == 13 and bank["items"] == 1 << 12
+    hybrid = chip_smoke.phase_hybrid("cpu", rows=64, items_per_row=40, p=8)
+    assert 0 < hybrid["promoted_rows"] < 64 and hybrid["memory_reduction"] > 1
+    window = chip_smoke.phase_window("cpu", window=8, rows=16, epoch_items=1 << 10, p=8,
+                                     hybrid_window=4, mr_base=2, mr_levels=2)
+    assert window["epochs"] == 16 and window["hybrid_ring"]["window"] == 4
     # on the CPU the wrappers run their plain versions and never count a launch
     assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
 
@@ -74,6 +105,7 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     code = (
         "import sys, repro_torch, repro_torch.interop, repro_torch.kernels, chip_smoke\n"
+        "import repro_torch.sketch.sparse, repro_torch.sketch.window\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
