@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's HLL main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,7 @@ Run from a checkout of the repo on a machine with a CUDA card and the CUDA
 toolkit; it needs no arguments and no network.  Phases, each of which
 raises (exit code 1) when it fails:
 
-  build    compile the seven kernels (six sources) from
+  build    compile the nine kernels (seven sources) from
            src/repro_torch/kernels/csrc with nvcc, one process per source,
            all at once; print the seconds and ptxas's register and
            shared-memory report.
@@ -18,7 +18,12 @@ raises (exit code 1) when it fails:
            Murmur3 oracles; sparse_scatter_coo at p in {4, 8, 12, 16} with
            rows -1 and B and rank-0 entries; window_fold_max with every
            slice live, a suffix, none live, and W = 1; window_merge_max at
-           K = 3.
+           K = 3; cm_scatter_add at d in {1, 4, 16} x w in {1, 1000, 1024,
+           2^16}, lengths 2^22 + 3, 1 and 127, keys -1 and B, counters
+           preset at 0xFFFFFFF0 so that the adds wrap; cm_window_fold_sum
+           on a (64, 1024, 4096) ring of counters >= 0xFFFFFFF0 with every
+           slice live, a suffix, none live, W = 1, and a 35-counter plane
+           (the scalar kernel).
   stream   the paper's NIC deployment (Tab. IV), lengthened: 2^26 uint32
            items in 16 chunks of 2^22 through ``update_registers`` under
            "cuda" and "cuda_pipelined" (k = 8), for (p, H) in
@@ -46,17 +51,40 @@ raises (exit code 1) when it fails:
            MultiResWindowedBank (base 4, levels 4) and a
            HybridWindowedBank (W = 16) on the same traffic, equal to
            "torch"; RHLW v1, v3 and v2 bytes round-trip.
+  countmin bench_heavy's largest CountMinBank, B = 1024, CMConfig(4,
+           1024) (serve.py's --cm-depth/--cm-width; 48 MiB of counters,
+           labels and votes): 8 ticks of 2^22 items, Zipf(1.2) tenant keys
+           with keys -1 and B mixed in, Zipf(1.1) items over 2^20 ids,
+           under "cuda" and "torch": counters, labels, votes and counts
+           bit-identical; 4096 probes (the 64 heaviest ids + random ones)
+           queried equal under both plans and never below the exact count;
+           topk(10) equal; the true top-1 id of each of the 16 busiest rows
+           in its topk(10); RCMB round trip; merge of two halves equal to
+           one ingest.
+  cm_window  a WindowedCountMinBank W = 64, B = 1024, CMConfig(4, 1024)
+           (a 3 GiB ring) over 2W epochs of 2^20 items with one advance_to
+           jump of W + 3: fold_window() and fold_window(W // 4) under "cuda"
+           equal "torch" every 8th epoch, and query_window of 4096 probes;
+           RCMW round trip on a W = 8 ring of the same B.
+  board    serve.py's telemetry board, StreamSketch(HLLConfig(12, 64),
+           track_topk=CMConfig(4, 1024)), flat and windowed (W = 16), 256
+           named streams, 32 epochs of 2^20 token ids (Zipf(1.1) over the
+           50257-token GPT-2 vocabulary) split over the streams by
+           Zipf(1.2), under "cuda" and "torch": report(exact=True) equal,
+           report() within rtol 1e-6, topk(name, 5) equal for every
+           stream, serialize() / window_bytes() equal.
   timing   each kernel's device time (CUDA events over warm launches
            queued back to back) and host time per call, its bound (bytes
            over 3.35 TB/s), its plain version's time and, where one
            PyTorch call computes the same function, that call's time.
   profile  torch.profiler over a few stream chunks, bank ticks, hybrid
-           ticks and full-window reads: wall and device-busy time per
-           step, idle share, top device entries.
+           ticks, full-window reads, count-min ticks, their label votes
+           alone and full-window reads of the count-min ring: wall and
+           device-busy time per step, idle share, top device entries.
 
-The launch counters are zeroed just before the stream, bank, hybrid and
-window phases (the main path) and read just after; every kernel must have
-launched there.
+The launch counters are zeroed just before the stream, bank, hybrid,
+window, countmin, cm_window and board phases (the main paths) and read just
+after; every kernel must have launched there.
 Before the last line it prints the kernels' JSON record and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -80,6 +108,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.kernels import _build, launch_counts, reset_launches  # noqa: E402
 from repro_torch.kernels.bank_scatter import bank_scatter_max, bank_scatter_max_plain  # noqa: E402
 from repro_torch.kernels.bucket_fold import bucket_fold, bucket_fold_plain  # noqa: E402
+from repro_torch.kernels.cm_scatter import (  # noqa: E402
+    cm_scatter_add,
+    cm_scatter_add_plain,
+    cm_window_fold_sum,
+    cm_window_fold_sum_plain,
+)
 from repro_torch.kernels.hash_rank import hash_rank, hash_rank_plain  # noqa: E402
 from repro_torch.kernels.hll_fused import hll_update_fused, hll_update_fused_plain  # noqa: E402
 from repro_torch.kernels.sparse_scatter import sparse_scatter_coo, sparse_scatter_coo_plain  # noqa: E402
@@ -90,6 +124,8 @@ from repro_torch.kernels.window_fold import (  # noqa: E402
     window_merge_max_plain,
 )
 from repro_torch.sketch import (  # noqa: E402
+    CMConfig,
+    CountMinBank,
     ExecutionPlan,
     HLLConfig,
     HybridBank,
@@ -98,9 +134,12 @@ from repro_torch.sketch import (  # noqa: E402
     MultiResWindowedBank,
     SketchBank,
     WindowedBank,
+    WindowedCountMinBank,
     reference_plan,
 )
+from repro_torch.sketch.countmin import _label_update, cm_hash_index  # noqa: E402
 from repro_torch.sketch.murmur3 import murmur3_32_py, murmur3_64_py  # noqa: E402
+from repro_torch.telemetry import StreamSketch  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -123,6 +162,21 @@ WINDOW_EPOCH_ITEMS = 1 << 20
 HYBRID_WINDOW = 16
 MR_BASE, MR_LEVELS = 4, 4
 EDGE_ITEMS = np.array([0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 1], dtype=np.uint32)
+# count-min: bench_heavy.py's largest bank and serve.py's --cm-depth/--cm-width
+CM_ROWS, CM_DEPTH, CM_WIDTH = 1024, 4, 1024
+CM_TICKS = 8
+CM_TICK_ITEMS = 1 << 22
+CM_ITEM_IDS = 1 << 20
+CM_ITEM_ZIPF = 1.1  # item skew: every tenant row has heavy hitters
+CM_PROBES = 4096
+CM_BYTES_WINDOW = 8  # the RCMW round trip's ring (a W = 64 ring is 3 GiB)
+CM_CELL_CAP = 1 << 26  # kernel-phase banks: at most 256 MiB of counters
+# the telemetry board of serve.py: HLL p = 12, H = 64 + CMConfig(4, 1024)
+BOARD_STREAMS = 256
+BOARD_EPOCHS = 32
+BOARD_EPOCH_ITEMS = 1 << 20
+BOARD_WINDOW = 16
+GPT2_VOCAB = 50257  # the serve path's token streams
 
 KERNEL_SOURCES = {
     "hash_rank": ("src/repro_torch/kernels/csrc/hash_rank.cu", "src/repro/kernels/hash_rank.py:44"),
@@ -132,6 +186,8 @@ KERNEL_SOURCES = {
     "sparse_scatter_coo": ("src/repro_torch/kernels/csrc/sparse_scatter.cu", "src/repro/kernels/sparse_scatter.py:99"),
     "window_fold_max": ("src/repro_torch/kernels/csrc/window_fold.cu", "src/repro/kernels/window_fold.py:51"),
     "window_merge_max": ("src/repro_torch/kernels/csrc/window_fold.cu", "src/repro/kernels/window_fold.py:102"),
+    "cm_scatter_add": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:94"),
+    "cm_window_fold_sum": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:186"),
 }
 
 
@@ -186,7 +242,7 @@ def phase_build() -> dict:
 
 
 def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
-                  hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW) -> dict:
+                  hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, cm_cells: int = CM_CELL_CAP) -> dict:
     """Every kernel against its plain version at main-path and ragged sizes."""
     rng = np.random.default_rng(SEED)
     errs = {name: 0.0 for name in KERNEL_SOURCES}
@@ -297,6 +353,44 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
     errs["window_merge_max"] = _max_abs_err(
         window_merge_max(parts), window_merge_max_plain(parts), "window_merge_max K=3"
     )
+    del ring, one, parts
+    for depth in (1, 4, 16):
+        for width in (1, 1000, 1024, 1 << 16):
+            cfg = CMConfig(depth, width, seed=2**64 - 1 if width == 1000 else 0)
+            cm_rows = max(1, min(rows, cm_cells // cfg.cells))
+            # every counter at 0xFFFFFFF0, so that the adds wrap past 2^32
+            counters = torch.full((cm_rows, depth, width), -16, dtype=torch.int32, device=device)
+            for length in (n + 3, 1, 127):
+                keys = rng.integers(-1, cm_rows + 1, length, dtype=np.int32)  # -1 and B are dropped
+                keys[: min(length, 2)] = [-1, cm_rows][: min(length, 2)]
+                k_t = torch.from_numpy(keys).to(device)
+                x = _items_tensor(_stream_items(length, rng), device)
+                errs["cm_scatter_add"] = max(
+                    errs["cm_scatter_add"],
+                    _max_abs_err(cm_scatter_add(counters, k_t, x, cfg), cm_scatter_add_plain(counters, k_t, x, cfg),
+                                 f"cm_scatter_add {cfg} B={cm_rows} n={length}"),
+                )
+            del counters
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    # counters in [0xFFFFFFF0, 0xFFFFFFFF]: every sum of two or more wraps
+    cm_ring = torch.randint(-16, 0, (window, rows, CM_DEPTH * CM_WIDTH), generator=gen, dtype=torch.int32,
+                            device=device)
+    masks = {
+        "all live": torch.ones(window, dtype=torch.bool),
+        f"last_k={window // 4}": torch.arange(window) >= window - window // 4,
+        "none live": torch.zeros(window, dtype=torch.bool),
+    }
+    rings = {f"W={window} {what}": (cm_ring, mask.to(device)) for what, mask in masks.items()}
+    rings["W=1"] = (cm_ring[:1].clone(), torch.ones(1, dtype=torch.bool, device=device))
+    # a plane of 35 counters, not a multiple of 4: the scalar kernel
+    odd = torch.randint(-16, 0, (4, 5, 1, 7), generator=gen, dtype=torch.int32, device=device)
+    rings["plane 35"] = (odd, torch.tensor([True, False, True, True], device=device))
+    for what, (r, mask) in rings.items():
+        errs["cm_window_fold_sum"] = max(
+            errs["cm_window_fold_sum"],
+            _max_abs_err(cm_window_fold_sum(r, mask), cm_window_fold_sum_plain(r, mask),
+                         f"cm_window_fold_sum {what}"),
+        )
     print(f"[kernels] bit-identical to their plain versions: max_abs_err {errs}")
     return errs
 
@@ -575,6 +669,251 @@ def phase_window(device, window: int = WINDOW, rows: int = WINDOW_ROWS, epoch_it
     return result
 
 
+def _zipf_ranks(n: int, a: float, support: int, gen: torch.Generator) -> torch.Tensor:
+    """n Zipf(a) ranks in [0, support), int64, drawn on ``gen``'s device by
+    inverse CDF: rank r has probability proportional to (r + 1)^-a.  numpy's
+    ``zipf`` is a rejection sampler on the host, too slow for the ~5 * 10^8
+    draws the count-min phases make."""
+    device = gen.device
+    weights = torch.arange(1, support + 1, dtype=torch.float64, device=device) ** -a
+    cdf = torch.cumsum(weights, 0)
+    u = torch.rand(n, generator=gen, dtype=torch.float64, device=device) * cdf[-1]
+    return torch.searchsorted(cdf, u).clamp_(max=support - 1)
+
+
+def _cm_traffic(rows: int, n: int, item_ids: int, gen: torch.Generator):
+    """Zipf(1.2) tenant keys (bench_serve's skew) over the B rows with keys
+    -1 and B mixed in, and Zipf(1.1) items over ``item_ids`` ids, rotated
+    per tenant so every row has heavy hitters of its own; int32 tensors on
+    ``gen``'s device."""
+    keys = _zipf_ranks(n, ZIPF_A, rows, gen)
+    keys[::1009] = -1
+    keys[1::1013] = rows
+    ranks = _zipf_ranks(n, CM_ITEM_ZIPF, item_ids, gen)
+    items = (ranks + keys * 7919) % item_ids
+    return keys.to(torch.int32), items.to(torch.int32)
+
+
+def _same_cm(a: CountMinBank, b: CountMinBank, what: str) -> None:
+    """Raise unless two count-min banks are bit-identical."""
+    for field in ("counters", "labels", "label_counts", "n_items"):
+        _max_abs_err(getattr(a, field), getattr(b, field), f"{what} {field}")
+
+
+def _exact_pair_counts(keys: torch.Tensor, items: torch.Tensor, rows: int, item_ids: int):
+    """(sorted (row, item) codes, their exact counts) of the valid keys, in
+    plain torch on the stream's device: the reference the sketch is held to."""
+    valid = (keys >= 0) & (keys < rows)
+    code = keys[valid].to(torch.int64) * item_ids + items[valid].to(torch.int64)
+    return torch.unique(code, return_counts=True)
+
+
+def _lookup(codes: torch.Tensor, counts: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Exact counts of ``query`` codes (0 where absent)."""
+    at = torch.searchsorted(codes, query).clamp(max=codes.numel() - 1)
+    return torch.where(codes[at] == query, counts[at], 0)
+
+
+def phase_countmin(device, rows: int = CM_ROWS, ticks: int = CM_TICKS, tick_items: int = CM_TICK_ITEMS,
+                   depth: int = CM_DEPTH, width: int = CM_WIDTH, item_ids: int = CM_ITEM_IDS,
+                   probes: int = CM_PROBES) -> dict:
+    """bench_heavy's largest CountMinBank through "cuda", held to "torch"."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    k_t, x_t = _cm_traffic(rows, ticks * tick_items, item_ids, gen)
+    cfg = CMConfig(depth, width, seed=0)
+    spans = [slice(t * tick_items, (t + 1) * tick_items) for t in range(ticks)]
+    plans = {"cuda": ExecutionPlan(backend="cuda"), "torch": reference_plan()}
+    banks, seconds = {}, {}
+    for name, plan in plans.items():
+        CountMinBank.empty(rows, cfg, device).update_many(k_t[spans[0]], x_t[spans[0]], plan)  # warm-up
+        bank = CountMinBank.empty(rows, cfg, device)
+        _sync(device)
+        t0 = time.perf_counter()
+        for span in spans:
+            bank = bank.update_many(k_t[span], x_t[span], plan)
+        _sync(device)
+        seconds[name] = time.perf_counter() - t0
+        banks[name] = bank
+    bank = banks["cuda"]
+    _same_cm(bank, banks["torch"], "countmin cuda vs torch")
+    landed = torch.bincount(k_t[(k_t >= 0) & (k_t < rows)].to(torch.int64), minlength=rows)
+    if not np.array_equal(bank.counts, landed.cpu().numpy().astype(np.uint64)):
+        raise AssertionError("countmin counters are not the exact per-row counts")
+
+    codes, counts = _exact_pair_counts(k_t, x_t, rows, item_ids)
+    by_item = torch.bincount((codes % item_ids), weights=counts.double(), minlength=item_ids)
+    heavy = torch.topk(by_item, 64).indices
+    rand = torch.randint(0, item_ids, (probes - 64,), generator=gen, device=device)
+    probe = torch.cat([heavy, rand]).to(torch.int32)
+    est = bank.query(probe, plans["cuda"])
+    _max_abs_err(est, banks["torch"].query(probe, plans["torch"]), "countmin query cuda vs torch")
+    grid = torch.arange(rows, device=device)[:, None] * item_ids + probe.to(torch.int64)[None, :]
+    exact = _lookup(codes, counts, grid)
+    if est.shape != (rows, probes) or not bool((est >= exact).all()):
+        raise AssertionError("countmin query is below an exact count")
+    top_v, top_c = bank.topk(10)
+    ref_v, ref_c = banks["torch"].topk(10)
+    if not (np.array_equal(top_v, ref_v) and np.array_equal(top_c, ref_c)):
+        raise AssertionError("countmin topk(10) differs between cuda and torch")
+    busiest = np.argsort(bank.counts, kind="stable")[::-1][:16]
+    row_of = codes // item_ids
+    for b in busiest.tolist():
+        mine = row_of == b
+        true_top = int(codes[mine][torch.argmax(counts[mine])] % item_ids)
+        if true_top not in top_v[b].tolist():
+            raise AssertionError(f"countmin row {b}: true top-1 {true_top} not in topk(10) {top_v[b]}")
+
+    blob = bank.to_bytes()
+    if CountMinBank.from_bytes(blob, device).to_bytes() != blob:
+        raise AssertionError("RCMB round trip changed the bank")
+    half = ticks // 2 * tick_items
+    first = CountMinBank.empty(rows, cfg, device).update_many(k_t[:half], x_t[:half], plans["cuda"])
+    second = CountMinBank.empty(rows, cfg, device).update_many(k_t[half:], x_t[half:], plans["cuda"])
+    merged = first.merge(second)
+    _max_abs_err(merged.counters, bank.counters, "countmin merge of halves vs one ingest")
+    if not np.array_equal(merged.counts, bank.counts):
+        raise AssertionError("countmin merge of halves: counts differ from one ingest")
+    over = (est - exact).to(torch.float64)
+    result = {
+        "rows": rows, "depth": depth, "width": width, "items": k_t.numel(),
+        "state_mib": bank.nbytes / 2**20,
+        "ingest_items_per_s": {name: k_t.numel() / sec for name, sec in seconds.items()},
+        "probe_overcount_mean": float(over.mean()), "probe_overcount_max": float(over.max()),
+        "rcmb_bytes": len(blob),
+    }
+    print(f"[countmin] {json.dumps(result)}")
+    return result
+
+
+def phase_cm_window(device, window: int = WINDOW, rows: int = CM_ROWS, epoch_items: int = WINDOW_EPOCH_ITEMS,
+                    depth: int = CM_DEPTH, width: int = CM_WIDTH, item_ids: int = CM_ITEM_IDS,
+                    probes: int = CM_PROBES, bytes_window: int = CM_BYTES_WINDOW) -> dict:
+    """A (W, B, d, w) count-min ring over 2W epochs, "cuda" held to "torch"."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    cfg = CMConfig(depth, width, seed=0)
+    plans = {"cuda": ExecutionPlan(backend="cuda"), "torch": reference_plan()}
+    rings = {name: WindowedCountMinBank.empty(window, rows, cfg, device) for name in plans}
+    probe = torch.randint(0, item_ids, (probes,), generator=gen, device=device, dtype=torch.int32)
+    epochs = 2 * window
+    jump_at = window + window // 4
+    observe_s = advance_s = read_s = 0.0
+    reads, landed = 0, []
+    for epoch in range(epochs):
+        k, x = _cm_traffic(rows, epoch_items, item_ids, gen)
+        landed.append(int(((k >= 0) & (k < rows)).sum()))
+        for name, plan in plans.items():
+            ring = rings[name]
+            _sync(device)
+            t0 = time.perf_counter()
+            if epoch == jump_at:  # one jump of more than W expires the whole ring
+                ring = ring.advance_to(ring.epoch + window + 3)
+            elif epoch:
+                ring = ring.advance()
+            _sync(device)
+            t1 = time.perf_counter()
+            ring = ring.observe(k, x, plan)
+            _sync(device)
+            if name == "cuda":
+                advance_s += t1 - t0
+                observe_s += time.perf_counter() - t1
+            rings[name] = ring
+        if epoch % 8 != 7:
+            continue
+        ring, ref = rings["cuda"], rings["torch"]
+        for last_k in (None, window // 4):
+            _sync(device)
+            t0 = time.perf_counter()
+            got = ring.fold_window(last_k, plans["cuda"])
+            _sync(device)
+            read_s += time.perf_counter() - t0
+            reads += 1
+            want = ref.fold_window(last_k, plans["torch"])
+            _same_cm(got, want, f"cm_window fold_window({last_k}) epoch {epoch}")
+            _max_abs_err(got.query(probe, plans["cuda"]), ref.query_window(probe, last_k, plans["torch"]),
+                         f"cm_window query_window({last_k}) epoch {epoch}")
+    ring = rings["cuda"]
+    # the jump expired every epoch before it; the ring holds those after
+    if int(ring.window_counts().sum()) != sum(landed[jump_at:]):
+        raise AssertionError(f"cm_window counters: {ring.window_counts().sum()} != {sum(landed[jump_at:])}")
+    del rings, ref, got, want
+    small = WindowedCountMinBank.empty(bytes_window, rows, cfg, device)
+    for epoch in range(bytes_window + 2):
+        k, x = _cm_traffic(rows, epoch_items // 4, item_ids, gen)
+        small = small.observe(k, x, plans["cuda"]).advance()
+    blob = small.to_bytes()
+    if WindowedCountMinBank.from_bytes(blob, device).to_bytes() != blob:
+        raise AssertionError("RCMW round trip changed the ring")
+    result = {
+        "window": window, "rows": rows, "depth": depth, "width": width, "epochs": epochs,
+        "ring_mib": 3 * 4 * ring.counters.numel() / 2**20,
+        "observe_ms": observe_s * 1e3 / epochs, "advance_ms": advance_s * 1e3 / (epochs - 1),
+        "read_ms": read_s * 1e3 / max(reads, 1), "rcmw_bytes": len(blob),
+    }
+    print(f"[cm_window] {json.dumps(result)}")
+    return result
+
+
+def phase_board(device, streams: int = BOARD_STREAMS, epochs: int = BOARD_EPOCHS,
+                epoch_items: int = BOARD_EPOCH_ITEMS, window: int = BOARD_WINDOW, vocab: int = GPT2_VOCAB,
+                p: int = 12, depth: int = CM_DEPTH, width: int = CM_WIDTH) -> dict:
+    """serve.py's telemetry board with heavy hitters, flat and windowed,
+    under "cuda" and "torch" plans."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    cfg, cm = HLLConfig(p=p, hash_bits=64), CMConfig(depth, width, seed=0)
+    names = [f"stream{i:03d}" for i in range(streams)]
+    boards = {
+        (name, kind): StreamSketch(cfg, plan=plan, track_topk=cm, device=device,
+                                   window=window if kind == "windowed" else None)
+        for name, plan in (("cuda", ExecutionPlan(backend="cuda")), ("torch", reference_plan()))
+        for kind in ("flat", "windowed")
+    }
+    seconds = {key: 0.0 for key in boards}
+    for epoch in range(epochs):
+        which, order = torch.sort(_zipf_ranks(epoch_items, ZIPF_A, streams, gen), stable=True)
+        t = _zipf_ranks(epoch_items, CM_ITEM_ZIPF, vocab, gen).to(torch.int32)[order]
+        bounds = torch.searchsorted(which, torch.arange(streams + 1, device=device)).tolist()
+        for key, board in boards.items():
+            _sync(device)
+            t0 = time.perf_counter()
+            for i in range(streams):
+                if bounds[i + 1] > bounds[i]:
+                    board.observe(names[i], t[bounds[i]: bounds[i + 1]])
+            if key[1] == "windowed":
+                board.advance()
+            _sync(device)
+            seconds[key] += time.perf_counter() - t0
+    result = {"streams": streams, "epochs": epochs, "items": epochs * epoch_items, "window": window}
+    for kind in ("flat", "windowed"):
+        board, ref = boards[("cuda", kind)], boards[("torch", kind)]
+        exact, want = board.report(exact=True), ref.report(exact=True)
+        if exact.keys() != want.keys() or any(
+            (exact[n]["estimate"], exact[n]["items_seen"]) != (want[n]["estimate"], want[n]["items_seen"])
+            for n in want
+        ):
+            raise AssertionError(f"board {kind}: report(exact=True) differs between cuda and torch")
+        fast, slow = board.report(), ref.report()
+        got = np.array([fast[n]["estimate"] for n in want])
+        ref_est = np.array([slow[n]["estimate"] for n in want])
+        if not np.allclose(got, ref_est, rtol=1e-6, atol=0):
+            raise AssertionError(f"board {kind}: report() estimates differ beyond rtol 1e-6")
+        for n in want:
+            if board.topk(n, 5) != ref.topk(n, 5):
+                raise AssertionError(f"board {kind}: topk({n!r}, 5) differs between cuda and torch")
+        blob_of = (lambda b: b.window_bytes()) if kind == "windowed" else (lambda b: b.serialize())
+        if blob_of(board) != blob_of(ref):
+            raise AssertionError(f"board {kind}: bytes differ between cuda and torch")
+        seen = sum(row["items_seen"] for row in exact.values())
+        result[kind] = {
+            "streams_reported": len(exact), "items_seen": seen,
+            "ingest_items_per_s": {name: epochs * epoch_items / seconds[(name, kind)] for name in ("cuda", "torch")},
+            "top1_of_busiest": board.topk(names[0], 1),
+        }
+    if result["flat"]["items_seen"] != epochs * epoch_items:
+        raise AssertionError(f"flat board saw {result['flat']['items_seen']} of {epochs * epoch_items} items")
+    print(f"[board] {json.dumps(result)}")
+    return result
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -648,6 +987,22 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
     live = torch.ones(window, dtype=torch.bool, device=device)
     stacks = [(torch.from_numpy(rng.integers(0, 40, (3, rows, sm), dtype=np.uint8)).to(device),)
               for _ in range(8)]
+    # cm_scatter_add: 2^22 keyed items into the (1024, 4, 1024) bank; the
+    # library call is index_add_ of the d-expanded cells into the flat int32
+    # counters, with the hash (cm_hash_index) computed beforehand, outside it
+    cmc = CMConfig(CM_DEPTH, CM_WIDTH, seed=0)
+    cm_bank = torch.from_numpy(rng.integers(0, 1000, (rows, CM_DEPTH, CM_WIDTH), dtype=np.int32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    cm_streams = [_cm_traffic(rows, n, CM_ITEM_IDS, gen) for _ in range(4)]
+    ck_t, cx_t = cm_streams[0]
+    ok = (ck_t >= 0) & (ck_t < rows)
+    lane = torch.arange(CM_DEPTH, device=device)[:, None] * CM_WIDTH
+    idx_ok = cm_hash_index(cx_t, cmc).to(torch.int64)[:, ok]
+    cm_cells = ((ck_t[ok].to(torch.int64) * cmc.cells)[None, :] + lane + idx_ok).reshape(-1)
+    cm_ones = torch.ones(cm_cells.numel(), dtype=torch.int32, device=device)
+    cm_flat = cm_bank.reshape(-1)
+    # cm_window_fold_sum over a (64, 1024, 4096) int32 ring (1 GiB), all live
+    cm_ring = torch.randint(-16, 0, (window, rows, cmc.cells), dtype=torch.int32, device=device)
     calls = {
         "hash_rank": (
             (lambda x: hash_rank(x, cfg), streams),
@@ -693,6 +1048,18 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
             (lambda t: torch.amax(t, 0), stacks),
             4 * rows * sm,
         ),
+        "cm_scatter_add": (
+            (lambda k, x: cm_scatter_add(cm_bank, k, x, cmc), cm_streams),
+            (lambda k, x: cm_scatter_add_plain(cm_bank, k, x, cmc), cm_streams),
+            (lambda: cm_flat.index_add(0, cm_cells, cm_ones), [()]),
+            8 * n + 2 * cm_bank.numel() * 4,
+        ),
+        "cm_window_fold_sum": (
+            (cm_window_fold_sum, [(cm_ring, live)]),
+            (cm_window_fold_sum_plain, [(cm_ring, live)]),
+            (lambda: cm_ring.sum(0, dtype=torch.int32), [()]),
+            4 * cm_ring.numel() + 4 * rows * cmc.cells,
+        ),
     }
     out = {}
     for name, (kernel, plain, library, nbytes) in calls.items():
@@ -708,6 +1075,16 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
     return out
 
 
+def _device_entries(averages) -> list:
+    """The card's own entries of a profiler's ``key_averages()``: kernels,
+    copies and fills.  An aten op reports the device time of the kernels it
+    launched as its own self time too, so a sum over every entry counts each
+    such kernel twice (and gave idle shares below 0)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in averages if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
 def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROWS,
                   hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW) -> dict:
     """Where the main path's time goes: torch.profiler over a few steps.
@@ -718,7 +1095,11 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     bench_sparse stream and the read that settles it, on a bank already
     holding the other three quarters) or one full-window read
     (``estimate_window()`` of a fresh instance of the W = 64 ring: the
-    three-fragment merge and the estimator).  Prints the wall time per step (without the profiler), the
+    three-fragment merge and the estimator), one count-min tick
+    (``CountMinBank.update_many`` of n Zipf-keyed items into the (1024, 4,
+    1024) bank), its Topkapi label vote alone, or one full-window
+    ``fold_window()`` of the 3 GiB (64, 1024, 4, 1024) count-min ring.
+    Prints the wall time per step (without the profiler), the
     card's busy time per step (the sum of its kernel and copy times, from
     the profiler) and the idle share, and the top device entries by self
     time.  Informational: an empty device trace
@@ -747,6 +1128,14 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     for epoch in range(window + 1):
         ring = ring.observe(*_zipf_epoch(rows, WINDOW_EPOCH_ITEMS, rng, device), plan).advance()
     ring.estimate_window(plan=plan)  # builds the decomposition the reads thread
+    cmc = CMConfig(CM_DEPTH, CM_WIDTH, seed=0)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    ck, cx = _cm_traffic(rows, n, CM_ITEM_IDS, gen)
+    cm_bank = CountMinBank.empty(rows, cmc, device).update_many(ck, cx, plan)
+    cm_ring = WindowedCountMinBank.empty(window, rows, cmc, device)
+    for epoch in range(window + 1):
+        k, x = _cm_traffic(rows, WINDOW_EPOCH_ITEMS, CM_ITEM_IDS, gen)
+        cm_ring = cm_ring.observe(k, x, plan).advance()
     steps_fn = {
         "stream": lambda: sk.update(chunk, plan),
         "bank": lambda: bank.update_many(k_t, x_t, plan),
@@ -754,6 +1143,12 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
         # advance_to(current epoch) is a new instance with the decomposition
         # threaded and an empty fold cache: the steady full-window read
         "window_read": lambda: ring.advance_to(ring.epoch).estimate_window(plan=plan),
+        # one count-min tick (counters + the Topkapi vote), and the vote alone
+        "cm_tick": lambda: cm_bank.update_many(ck, cx, plan),
+        "cm_label_vote": lambda: _label_update(cm_bank.labels, cm_bank.label_counts, ck, cx, cmc),
+        # a full-window read of the 3 GiB ring: the counter fold kernel and
+        # the W - 1 pairwise label merges
+        "cm_window_read": lambda: cm_ring.fold_window(plan=plan),
     }
     result = {}
     for name, step in steps_fn.items():
@@ -768,7 +1163,7 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
-        rows_ = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        rows_ = _device_entries(prof.key_averages())
         busy_ms = sum(e.self_device_time_total for e in rows_) / 1e3 / steps
         result[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                         "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None}
@@ -807,6 +1202,9 @@ def main() -> int:
     bank = _timed(phase_bank, device)
     hybrid = _timed(phase_hybrid, device)
     window = _timed(phase_window, device)
+    countmin = _timed(phase_countmin, device)
+    cm_window = _timed(phase_cm_window, device)
+    board = _timed(phase_board, device)
     launches = launch_counts()
     print(f"[main path] launches {launches}")
     missing = [name for name, count in launches.items() if count == 0]
@@ -819,7 +1217,11 @@ def main() -> int:
     print(f"[timing] stream end to end, cuda: {best['items_per_s']['cuda']:.4g} items/s "
           f"at p={best['p']} H={best['hash_bits']}; bank ingest {bank['ingest_items_per_s']:.4g} items/s; "
           f"hybrid ingest {hybrid['ingest_items_per_s']['cuda']:.4g} items/s (compaction included); "
-          f"full+quarter window read {window['read_ms']:.4g} ms")
+          f"full+quarter window read {window['read_ms']:.4g} ms; "
+          f"count-min ingest {countmin['ingest_items_per_s']['cuda']:.4g} items/s (label vote included); "
+          f"count-min ring read {cm_window['read_ms']:.4g} ms, observe {cm_window['observe_ms']:.4g} ms; "
+          f"board ingest {board['flat']['ingest_items_per_s']['cuda']:.4g} items/s flat, "
+          f"{board['windowed']['ingest_items_per_s']['cuda']:.4g} items/s windowed")
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,4 +1,4 @@
-"""repro_torch -- the HLL sketch engine on PyTorch and CUDA for Hopper.
+"""repro_torch -- the sketch engine on PyTorch and CUDA for Hopper.
 
 A port of the JAX package ``repro``, which stays beside it as the
 reference.  The layout mirrors ``repro`` one module per module
@@ -9,6 +9,8 @@ Nothing here imports ``jax`` or ``repro``.
 """
 
 from repro_torch.sketch import (  # noqa: F401
+    CMConfig,
+    CountMinBank,
     DEFAULT_PLAN,
     ExecutionPlan,
     HLLConfig,
@@ -18,6 +20,8 @@ from repro_torch.sketch import (  # noqa: F401
     MultiResWindowedBank,
     SketchBank,
     WindowedBank,
+    WindowedCountMinBank,
+    cm_update_many,
     estimate_many,
     reference_plan,
     update_many,

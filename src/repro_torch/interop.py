@@ -8,8 +8,12 @@ uint8 registers, (m,) or (B, m), and uint32 (hi, lo) counter limbs, (2,) or
 a ``WindowedBank`` as (W, B, m) registers, (W, B, 2) limbs, ``cursor`` and
 ``epochs``, in dicts keyed by the reference's field names.  Hidden state
 (the ring's incremental fold, the fold caches, an unsettled append log)
-never crosses: it rebuilds on the other side.  Wire bytes (RHLL, RHLB,
-RHLW) need nothing here: both packages write and read the same formats.
+never crosses: it rebuilds on the other side.  A ``CountMinBank`` crosses
+as ``counters`` (uint32), ``labels`` and ``label_counts`` (int32), (B, d, w)
+each, and ``n_items`` limbs; a ``WindowedCountMinBank`` as the same fields
+with a leading W axis plus ``cursor`` and ``epochs``.  Wire bytes (RHLL,
+RHLB, RHLW, RCMB, RCMW) need nothing here: both packages write and read
+the same formats.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from repro_torch.sketch import hll
 from repro_torch.sketch.bank import SketchBank
 from repro_torch.sketch.carrier import HyperLogLog
+from repro_torch.sketch.countmin import CMConfig, CountMinBank, WindowedCountMinBank
 from repro_torch.sketch.hll import HLLConfig
 from repro_torch.sketch.sparse import HybridBank, _check_threshold
 from repro_torch.sketch.window import WindowedBank, _validate_epoch_ring
@@ -131,4 +136,67 @@ def window_from_reference_state(
         cursor,
         epochs.astype(np.int32),
         cfg,
+    )
+
+
+def _cm_tables(state: Dict[str, object], cfg: CMConfig, ndim: int):
+    """The (counters, labels, label_counts) of a count-min state as int32
+    tensors (counters hold the uint32 bits), checked against ``cfg``."""
+    counters = np.asarray(state["counters"])
+    if counters.ndim != ndim or counters.shape[-2:] != (cfg.depth, cfg.width):
+        raise ValueError(
+            f"expected {ndim}-d counters ending in (d={cfg.depth}, w={cfg.width}), got {counters.shape}"
+        )
+    tables = [counters.astype(np.uint32).view(np.int32)]
+    for field in ("labels", "label_counts"):
+        table = np.asarray(state[field])
+        if table.shape != counters.shape:
+            raise ValueError(f"{field} are {table.shape}, counters {counters.shape}")
+        tables.append(table.astype(np.int32))
+    return [torch.from_numpy(np.ascontiguousarray(t)) for t in tables]
+
+
+def countmin_to_reference_state(bank: CountMinBank) -> Dict[str, object]:
+    """A ``CountMinBank``'s fields as the reference carries them."""
+    return {
+        "counters": bank.counters.cpu().numpy().view(np.uint32),
+        "labels": bank.labels.cpu().numpy().astype(np.int32),
+        "label_counts": bank.label_counts.cpu().numpy().astype(np.int32),
+        "n_items": bank.n_items.cpu().numpy().astype(np.uint32),
+    }
+
+
+def countmin_from_reference_state(
+    state: Dict[str, object], depth: int, width: int, seed: int = 0, device=None
+) -> CountMinBank:
+    """A ``CountMinBank`` from the reference's fields (see above)."""
+    cfg = CMConfig(depth=depth, width=width, seed=seed)
+    counters, labels, votes = _cm_tables(state, cfg, 3)
+    device = hll.resolve_device(device)
+    limbs = _limbs(state["n_items"], (counters.shape[0], 2))
+    return CountMinBank(counters.to(device), labels.to(device), votes.to(device), limbs.to(device), cfg)
+
+
+def cm_window_to_reference_state(win: WindowedCountMinBank) -> Dict[str, object]:
+    """A ``WindowedCountMinBank``'s ring as the reference carries it."""
+    state = countmin_to_reference_state(win)
+    state.update(cursor=int(win.cursor), epochs=np.asarray(win.epochs, dtype=np.int32))
+    return state
+
+
+def cm_window_from_reference_state(
+    state: Dict[str, object], depth: int, width: int, seed: int = 0, device=None
+) -> WindowedCountMinBank:
+    """A ``WindowedCountMinBank`` from the reference's ring (see above)."""
+    cfg = CMConfig(depth=depth, width=width, seed=seed)
+    counters, labels, votes = _cm_tables(state, cfg, 4)
+    window = counters.shape[0]
+    cursor = int(state["cursor"])
+    epochs = np.asarray(state["epochs"]).astype(np.int64).reshape(window)
+    _validate_epoch_ring(epochs, cursor, window)
+    device = hll.resolve_device(device)
+    limbs = _limbs(state["n_items"], tuple(counters.shape[:2]) + (2,))
+    return WindowedCountMinBank(
+        counters.to(device), labels.to(device), votes.to(device), limbs.to(device),
+        cursor, epochs.astype(np.int32), cfg,
     )

@@ -9,6 +9,8 @@ One module per TPU kernel of the reference (``repro/kernels``):
   sparse_scatter.sparse_scatter_coo <- sparse_scatter.py::sparse_scatter_coo
   window_fold.window_fold_max       <- window_fold.py::window_fold_max
   window_fold.window_merge_max      <- window_fold.py::window_merge_max
+  cm_scatter.cm_scatter_add         <- cm_scatter.py::cm_scatter_add
+  cm_scatter.cm_window_fold_sum     <- cm_scatter.py::cm_window_fold_sum
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.  Each wrapper counts its launches in a plain
@@ -31,6 +33,8 @@ KERNELS = {
     "sparse_scatter_coo": ("sparse_scatter", "sparse_scatter_coo"),
     "window_fold_max": ("window_fold", "window_fold_max"),
     "window_merge_max": ("window_fold", "window_merge_max"),
+    "cm_scatter_add": ("cm_scatter", "cm_scatter_add"),
+    "cm_window_fold_sum": ("cm_scatter", "cm_window_fold_sum"),
 }
 
 

@@ -1,8 +1,9 @@
 """repro_torch.sketch -- the public API of the HLL engine on PyTorch.
 
 The port of ``repro.sketch``: single sketches, keyed ``SketchBank``s,
-sparse/dense ``HybridBank``s and the windowed rings, each ingested through
-an ``ExecutionPlan`` and finalized by the estimator registry.
+sparse/dense ``HybridBank``s, the windowed rings and the count-min family,
+each ingested through an ``ExecutionPlan`` and finalized by the estimator
+registry.
 
     from repro_torch.sketch import HyperLogLog, HLLConfig, ExecutionPlan
 
@@ -21,6 +22,12 @@ an ``ExecutionPlan`` and finalized by the estimator registry.
     win = WindowedBank.empty(64, 1024, HLLConfig(p=12))     # (W, B, m) ring
     win = win.observe(keys, items).advance()
     ests = win.estimate_window(last_k=16)                   # window_fold kernel
+
+    cm = CountMinBank.empty(1024, CMConfig(depth=4, width=1024))
+    cm = cm.update_many(keys, items)                        # cm_scatter_add kernel
+    est = cm.query(probes); values, counts = cm.topk(10)    # heavy hitters
+    cmw = WindowedCountMinBank.empty(64, 1024, CMConfig())  # (W, B, d, w) ring
+    top = cmw.observe(keys, items).topk_window(10)          # cm_window_fold_sum
 
 Pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.  Every
 plan gives bit-identical registers on the same stream (DESIGN.md §3).
@@ -55,8 +62,11 @@ from repro_torch.sketch.plan import (  # noqa: F401
     DEFAULT_PIPELINES,
     DEFAULT_PLAN,
     ExecutionPlan,
+    CMBackend,
     available_backends,
     available_bank_backends,
+    available_cm_backends,
+    available_cm_window_backends,
     example_plans,
     SparseDedup,
     available_sparse_backends,
@@ -64,12 +74,16 @@ from repro_torch.sketch.plan import (  # noqa: F401
     available_window_merge_backends,
     get_backend,
     get_bank_backend,
+    get_cm_backend,
+    get_cm_window_backend,
     get_sparse_backend,
     get_window_backend,
     get_window_merge_backend,
     reference_plan,
     register_backend,
     register_bank_backend,
+    register_cm_backend,
+    register_cm_window_backend,
     register_sparse_backend,
     register_window_backend,
     register_window_merge_backend,
@@ -90,6 +104,14 @@ from repro_torch.sketch.window import (  # noqa: F401
     HybridWindowedBank,
     MultiResWindowedBank,
     WindowedBank,
+)
+from repro_torch.sketch.countmin import (  # noqa: F401
+    CMConfig,
+    CountMinBank,
+    WindowedCountMinBank,
+    cm_update_many,
+    query_cm_counters,
+    update_cm_counters,
 )
 from repro_torch.sketch.setops import (  # noqa: F401
     difference_estimate,

@@ -25,6 +25,17 @@ names on each:
                                  stream rivals the bank; cuda*: the
                                  sparse_scatter_coo kernel (cells layout)
 
+The count-min family (DESIGN.md §13) registers the same three names on its
+two axes:
+
+  cm ingest + query  torch: ``cm_hash_index`` + one ``index_add_`` over the
+                     flattened (key, depth, column) cells; cuda*: the
+                     cm_scatter_add kernel (hash and d atomic hits fused).
+                     The query is the same gather-min under every backend,
+                     as in the reference.
+  cm window fold     torch: where + an int32 sum over the W axis; cuda*:
+                     the cm_window_fold_sum kernel
+
 The reference pads streams to its kernels' (rows, 128) tiles; the CUDA
 wrappers take flat streams of any length and mask their own ragged edge,
 so no padding happens here.  On CPU tensors every kernel wrapper runs its
@@ -43,6 +54,8 @@ from repro_torch.sketch.plan import (
     SparseDedup,
     register_backend,
     register_bank_backend,
+    register_cm_backend,
+    register_cm_window_backend,
     register_sparse_backend,
     register_window_backend,
     register_window_merge_backend,
@@ -62,6 +75,12 @@ def _ring_kernels():
     from repro_torch.kernels import sparse_scatter, window_fold
 
     return sparse_scatter, window_fold
+
+
+def _cm_kernels():
+    from repro_torch.kernels import cm_scatter
+
+    return cm_scatter
 
 
 # ----------------------------------------------------------------------------
@@ -349,3 +368,80 @@ def _cuda_pipelined_sparse_backend(row, bucket, rank, rows, cfg: HLLConfig, plan
     _sparse, _ = _ring_kernels()
     cells, distinct = _sparse.sparse_scatter_coo(row, bucket, rank, rows, cfg.m)
     return SparseDedup(distinct=distinct, cells=cells)
+
+
+# ----------------------------------------------------------------------------
+# CountMinBank paths (keyed scatter-add + gather-min; DESIGN.md §13)
+# ----------------------------------------------------------------------------
+
+
+def cm_update_torch(counters: torch.Tensor, keys: torch.Tensor, items: torch.Tensor, cfg) -> torch.Tensor:
+    """Reference cm ingest: ONE ``index_add_`` over (key, depth, column) cells.
+
+    Item i with key b adds 1 at flattened cell ``b*d*w + r*w + idx_r(i)``
+    of each depth row r; out-of-range keys route to a discarded trailing
+    cell (the §9 drop rule).  Counters are int32 holding uint32 bits and
+    wrap mod 2^32.  B*d*w >= 2^31 is rejected loudly, as in the reference.
+    """
+    return _cm_kernels().cm_scatter_add_plain(counters, keys, items, cfg)
+
+
+def cm_update(counters: torch.Tensor, keys: torch.Tensor, items: torch.Tensor, cfg) -> torch.Tensor:
+    """Kernel cm ingest: the cm_scatter_add kernel hashes each item and lands
+    its d hits with atomics.  The reference's d-expanded, tiled stream and
+    its ``row_block`` slabs under the VMEM cap have no counterpart."""
+    return _cm_kernels().cm_scatter_add(counters, keys, items, cfg)
+
+
+def cm_query_torch(counters: torch.Tensor, items: torch.Tensor, cfg) -> torch.Tensor:
+    """Reference cm point query: gather d cells per (row, item), min-reduce.
+
+    Returns (B, n) int64 estimates: the min over d is taken on the
+    counters' unsigned values (a counter past 2^31 is negative as int32
+    and must not win).  A gather-min has no scatter hazard for a kernel to
+    fuse away, so every backend shares this query, as in the reference.
+    """
+    from repro_torch.sketch import countmin
+
+    depth = counters.shape[1]
+    idx = countmin.cm_hash_index(items, cfg).to(torch.int64)  # (d, n)
+    r = torch.arange(depth, device=counters.device)[:, None]
+    return countmin.unsigned(counters[:, r, idx]).amin(dim=1)  # (B, d, n) -> (B, n)
+
+
+def _torch_cm_ingest(counters, keys, items, cfg, plan: ExecutionPlan):
+    # the scatter-add is already one fused op; `pipelines` has no fold to
+    # parallelize, exactly as in bank_update_torch
+    return cm_update_torch(counters, keys, items, cfg)
+
+
+def _cuda_cm_ingest(counters, keys, items, cfg, plan: ExecutionPlan):
+    return cm_update(counters, keys, items, cfg)
+
+
+def _cm_query(counters, items, cfg, plan: ExecutionPlan):
+    return cm_query_torch(counters, items, cfg)
+
+
+register_cm_backend("torch", _torch_cm_ingest, _cm_query)
+register_cm_backend("cuda", _cuda_cm_ingest, _cm_query)
+# the reference tiles the bank over k row blocks to stay under its VMEM cap;
+# the atomic scatter has no cap, so k pipelines are one launch
+register_cm_backend("cuda_pipelined", _cuda_cm_ingest, _cm_query)
+
+
+@register_cm_window_backend("torch")
+def _torch_cm_window_backend(ring, mask, cfg, plan: ExecutionPlan):
+    return _cm_kernels().cm_window_fold_sum_plain(ring, mask)
+
+
+@register_cm_window_backend("cuda")
+def _cuda_cm_window_backend(ring, mask, cfg, plan: ExecutionPlan):
+    return _cm_kernels().cm_window_fold_sum(ring, mask)
+
+
+@register_cm_window_backend("cuda_pipelined")
+def _cuda_pipelined_cm_window_backend(ring, mask, cfg, plan: ExecutionPlan):
+    # the reference tiles the fold over k row blocks under its VMEM cap;
+    # the kernel has no cap, so k pipelines are one launch
+    return _cm_kernels().cm_window_fold_sum(ring, mask)

@@ -72,3 +72,18 @@ def dedup_pairs(
         # sites wait for ROADMAP A.9
         backend = get_sparse_backend("torch")
     return backend(row, bucket, rank, rows, cfg, plan)
+
+
+def cm_mesh_sum(plan: ExecutionPlan, counters, arrays, apply_fn):
+    """The mesh placement rule for ADDITIVE sketch state (count-min).
+
+    The reference pads the key stream with -1 (dropped on every backend),
+    ingests each device's shard into a zero bank and sums the deltas with
+    one collective.  The port runs placement="local" only until the
+    placement slice (ROADMAP A.10); the plan already refuses "mesh", so
+    this is reached only by a plan built around that check.
+    """
+    raise NotImplementedError(
+        f"placement={plan.placement!r} is not ported yet: count-min mesh "
+        f"ingest waits for the placement slice (ROADMAP A.10)"
+    )

@@ -1,9 +1,9 @@
 """ExecutionPlan: config-driven dispatch for the sketch aggregation phase.
 
-Port of ``repro/sketch/plan.py``, with five of its seven registry axes:
+Port of ``repro/sketch/plan.py`` with all seven of its registry axes:
 single-sketch ingest, bank ingest, the window ring fold, the incremental
-window merge and the HybridBank sparse dedup.  The two count-min axes
-arrive with the count-min slice (ROADMAP A.8).  The backends:
+window merge, the HybridBank sparse dedup, and the count-min pair (ingest
++ point query) and count-min ring fold.  The backends:
 
   backend    "torch"            eager PyTorch scatter-max, on the CPU or
                                 the card (the reference's "jnp")
@@ -91,6 +91,31 @@ class SparseDedup(NamedTuple):
     survivor: Optional[Any] = None
 
 
+class CMBackend(NamedTuple):
+    """The count-min backend pair: fused ingest + batched point query.
+
+    ingest: fn(counters, keys, flat_items, cfg, plan) -> (B, d, w) counters
+    query:  fn(counters, flat_items, cfg, plan) -> (B, n) int64 counts
+
+    Counters are int32 tensors holding the uint32 bits; a query returns the
+    uint32 values in int64.
+    """
+
+    ingest: Callable
+    query: Callable
+
+
+# backend name -> CMBackend.  The count-min family (DESIGN.md §13)
+# registers under the SAME names as the HLL axes, so one ExecutionPlan
+# drives cardinality and heavy-hitter sketches alike.
+_CM_BACKENDS: Dict[str, CMBackend] = {}
+
+# backend name -> fn(ring_counters, mask, cfg, plan) -> (B, d, w) counters.
+# Windowed count-min folds collapse the (W, B, d, w) counter ring with one
+# masked SUM-reduce (the additive mirror of the window fold above).
+_CM_WINDOW_BACKENDS: Dict[str, Callable] = {}
+
+
 # backend name -> fn(row, bucket, rank, rows, cfg, plan) -> SparseDedup.
 # The HybridBank append-buffer compaction (DESIGN.md §12) dispatches its
 # dedup through this axis.
@@ -171,6 +196,43 @@ def register_window_merge_backend(name: str) -> Callable[[Callable], Callable]:
     return deco
 
 
+def register_cm_backend(name: str, ingest: Callable, query: Callable) -> CMBackend:
+    """Register a count-min backend pair (fused ingest + point query).
+
+    Unlike the single-function axes, a count-min backend is a PAIR -- the
+    scatter-add ingest and the gather-min query -- so registration is a
+    plain call rather than a decorator.  Signatures are documented on
+    :class:`CMBackend`.  Every registered ingest must be bit-identical to
+    the torch entry.
+    """
+    if name in _CM_BACKENDS:
+        raise ValueError(f"cm backend {name!r} already registered")
+    # obs wrap_backend sites (cm_update, cm_query) wait for ROADMAP A.9
+    backend = CMBackend(ingest, query)
+    _CM_BACKENDS[name] = backend
+    return backend
+
+
+def register_cm_window_backend(name: str) -> Callable[[Callable], Callable]:
+    """Decorator: register a windowed count-min ring-fold path under ``name``.
+
+    The signature is fn(ring_counters, mask, cfg, plan) -> (B, d, w)
+    counters, where ``ring_counters`` is the (W, B, d, w) int32 ring of a
+    ``WindowedCountMinBank`` and ``mask`` a (W,) bool on its device
+    selecting the live buckets.  Every entry must be bit-identical to
+    summing the live buckets one by one, mod 2^32.
+    """
+
+    def deco(fn: Callable) -> Callable:
+        if name in _CM_WINDOW_BACKENDS:
+            raise ValueError(f"cm window backend {name!r} already registered")
+        # obs wrap_backend site left out until the obs slice (ROADMAP A.9)
+        _CM_WINDOW_BACKENDS[name] = fn
+        return fn
+
+    return deco
+
+
 def register_sparse_backend(name: str) -> Callable[[Callable], Callable]:
     """Decorator: register a HybridBank dedup/compaction path under ``name``.
 
@@ -238,6 +300,26 @@ def get_window_merge_backend(name: str) -> Callable:
         raise ValueError("no window merge backends registered") from None
 
 
+def get_cm_backend(name: str) -> CMBackend:
+    try:
+        return _CM_BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"backend {name!r} has no count-min path; cm-capable: "
+            f"{sorted(_CM_BACKENDS)}"
+        ) from None
+
+
+def get_cm_window_backend(name: str) -> Callable:
+    try:
+        return _CM_WINDOW_BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"backend {name!r} has no count-min window fold path; "
+            f"cm-window-capable: {sorted(_CM_WINDOW_BACKENDS)}"
+        ) from None
+
+
 def get_sparse_backend(name: str) -> Callable:
     try:
         return _SPARSE_BACKENDS[name]
@@ -262,6 +344,14 @@ def available_window_backends() -> Tuple[str, ...]:
 
 def available_window_merge_backends() -> Tuple[str, ...]:
     return tuple(sorted(_WINDOW_MERGE_BACKENDS))
+
+
+def available_cm_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_CM_BACKENDS))
+
+
+def available_cm_window_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_CM_WINDOW_BACKENDS))
 
 
 def available_sparse_backends() -> Tuple[str, ...]:

@@ -11,7 +11,11 @@ or the reference's jnp path at p = 16:
   sparse_scatter_coo  rows -1 and B and rank-0 entries dropped, exact
                     per-row distinct counts;
   window_fold_max   masks all live, a suffix, none live, W = 1;
-  window_merge_max  K = 3 fold fragments.
+  window_merge_max  K = 3 fold fragments;
+  cm_scatter_add    d in {1, 3, 4, 16}, w up to 2^16, keys -1 and B dropped,
+                    counters preset near 2^32 so that adds wrap;
+  cm_window_fold_sum  masks all live, a suffix, none live, W = 1, sums that
+                    wrap past 2^32.
 
 The ``gpu`` tests hold each CUDA kernel to its plain version on the card.
 """
@@ -28,9 +32,13 @@ from repro.kernels import ref as ref_oracles
 from repro.sketch.backends import bank_update_jnp, sparse_merge, sparse_merge_cells
 from repro.sketch.backends import window_fold as ref_window_fold
 from repro.sketch.backends import window_fold_jnp, window_merge, window_merge_jnp
+from repro.sketch.backends import cm_update as ref_cm_update
+from repro.sketch.backends import cm_update_jnp, cm_window_fold, cm_window_fold_jnp
+from repro.sketch.countmin import CMConfig as RefCMConfig
 from repro.sketch.hll import HLLConfig as RefConfig
-from repro_torch.kernels import bank_scatter, bucket_fold, hll_fused, sparse_scatter, window_fold
+from repro_torch.kernels import bank_scatter, bucket_fold, cm_scatter, hll_fused, sparse_scatter, window_fold
 from repro_torch.sketch import hll
+from repro_torch.sketch.countmin import CMConfig
 from repro_torch.sketch.hll import HLLConfig
 
 LANES = 128
@@ -277,6 +285,84 @@ def test_window_merge_max_matches_reference_kernel(rows, p):
 
 
 # ----------------------------------------------------------------------------
+# cm_scatter_add / cm_window_fold_sum
+# ----------------------------------------------------------------------------
+
+
+def _cm_stream(n, rows, seed):
+    """Keys with -1 and B mixed in, Zipf-heavy int32 items with edge values."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-1, rows + 1, n).astype(np.int32)
+    keys[: min(n, 2)] = [-1, rows][: min(n, 2)]
+    items = (rng.zipf(1.2, n) % 1000).astype(np.int32)
+    edges = np.array([0, -1, -(2**31), 2**31 - 1], dtype=np.int32)
+    items[: min(n, 4)] = edges[: min(n, 4)]
+    return keys, items
+
+
+def _near_wrap(shape, seed):
+    """uint32 counters within 64 of 2^32, so that a few adds wrap."""
+    return (2**32 - np.random.default_rng(seed).integers(1, 64, shape)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("depth,width,rows,n", [(1, 1, 5, 127), (4, 64, 6, 1000), (4, 1024, 3, 4099),
+                                                (16, 256, 2, 300), (3, 1000, 4, 2000)])
+def test_cm_scatter_add_matches_reference_kernel(depth, width, rows, n):
+    cfg, rcfg = CMConfig(depth, width, seed=9), RefCMConfig(depth, width, seed=9)
+    keys, items = _cm_stream(n, rows, depth * width)
+    counters = _near_wrap((rows, depth, width), n)
+    got = cm_scatter.cm_scatter_add(
+        torch.from_numpy(counters.view(np.int32)), torch.from_numpy(keys), torch.from_numpy(items), cfg
+    )
+    assert got.dtype == torch.int32 and tuple(got.shape) == counters.shape
+    want = ref_cm_update(jnp.asarray(counters), jnp.asarray(keys), jnp.asarray(items), rcfg, interpret=True)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+
+
+def test_cm_scatter_add_wide_matches_reference_jnp_path():
+    cfg, rcfg = CMConfig(16, 1 << 16, seed=2**64 - 1), RefCMConfig(16, 1 << 16, seed=2**64 - 1)
+    keys, items = _cm_stream(5000, 2, 1)
+    counters = _near_wrap((2, 16, 1 << 16), 2)
+    got = cm_scatter.cm_scatter_add(
+        torch.from_numpy(counters.view(np.int32)), torch.from_numpy(keys), torch.from_numpy(items), cfg
+    )
+    want = cm_update_jnp(jnp.asarray(counters), jnp.asarray(keys), jnp.asarray(items), rcfg)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+    with pytest.raises(TypeError, match="int32"):
+        cm_scatter.cm_scatter_add(torch.zeros((2, 16, 1 << 16)), torch.from_numpy(keys), torch.from_numpy(items), cfg)
+    with pytest.raises(ValueError, match=r"\(B, 4, 1024\)"):
+        cm_scatter.cm_scatter_add(torch.zeros((2, 16, 1 << 16), dtype=torch.int32), torch.from_numpy(keys),
+                                  torch.from_numpy(items), CMConfig())
+    with pytest.raises(ValueError, match="differ in length"):
+        cm_scatter.cm_scatter_add(torch.from_numpy(counters.view(np.int32)), torch.from_numpy(keys[:5]),
+                                  torch.from_numpy(items), cfg)
+
+
+@pytest.mark.parametrize("window,rows,depth,width", [(1, 3, 2, 64), (5, 4, 4, 64), (8, 3, 1, 1000), (4, 2, 4, 1024)])
+def test_cm_window_fold_sum_matches_reference_kernel(window, rows, depth, width):
+    ring = _near_wrap((window, rows, depth, width), window + width)
+    masks = [np.ones(window, bool), np.arange(window) >= window // 2, np.zeros(window, bool),
+             np.arange(window) % 2 == 1]
+    for mask in masks:
+        got = cm_scatter.cm_window_fold_sum(torch.from_numpy(ring.view(np.int32)), torch.from_numpy(mask))
+        assert got.dtype == torch.int32 and tuple(got.shape) == ring.shape[1:]
+        want = cm_window_fold(jnp.asarray(ring), jnp.asarray(mask), interpret=True)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+
+
+def test_cm_window_fold_sum_wide_matches_reference_jnp_fold():
+    ring = _near_wrap((6, 2, 3, 1 << 14), 3)
+    mask = np.array([1, 0, 1, 1, 0, 1], bool)
+    got = cm_scatter.cm_window_fold_sum(torch.from_numpy(ring.view(np.int32)), torch.from_numpy(mask))
+    want = cm_window_fold_jnp(jnp.asarray(ring), jnp.asarray(mask))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+    with pytest.raises(ValueError, match=r"mask must be \(6,\)"):
+        cm_scatter.cm_window_fold_sum(torch.from_numpy(ring.view(np.int32)), torch.ones(5, dtype=torch.bool))
+    with pytest.raises(TypeError, match="int32"):
+        cm_scatter.cm_window_fold_sum(torch.from_numpy(ring.astype(np.int64)), torch.from_numpy(mask))
+
+
+# ----------------------------------------------------------------------------
 # the CUDA kernels on the card
 # ----------------------------------------------------------------------------
 
@@ -355,3 +441,29 @@ def test_window_merge_max_kernel_matches_plain_on_card():
     got = window_fold.window_merge_max(parts)
     assert window_fold.window_merge_max.launches == before + 1
     torch.testing.assert_close(got, window_fold.window_merge_max_plain(parts), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_cm_scatter_add_kernel_matches_plain_on_card():
+    _need_card()
+    for depth, width, rows, n in ((1, 1, 5, 127), (4, 1024, 1024, (1 << 20) + 3), (16, 1 << 16, 3, 1 << 16)):
+        cfg = CMConfig(depth, width, seed=7)
+        keys, items = (torch.from_numpy(a).cuda() for a in _cm_stream(n, rows, width))
+        counters = torch.from_numpy(_near_wrap((rows, depth, width), n).view(np.int32)).cuda()
+        before = cm_scatter.cm_scatter_add.launches
+        got = cm_scatter.cm_scatter_add(counters, keys, items, cfg)
+        assert cm_scatter.cm_scatter_add.launches == before + 1
+        torch.testing.assert_close(got, cm_scatter.cm_scatter_add_plain(counters, keys, items, cfg), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_cm_window_fold_sum_kernel_matches_plain_on_card():
+    _need_card()
+    for window, rows, depth, width in ((16, 64, 4, 1024), (3, 5, 1, 1), (1, 7, 3, 1000)):
+        ring = torch.from_numpy(_near_wrap((window, rows, depth, width), window).view(np.int32)).cuda()
+        for live in sorted({window, max(window // 4, 1), 0}):
+            mask = (torch.arange(window) >= window - live).cuda()
+            before = cm_scatter.cm_window_fold_sum.launches
+            got = cm_scatter.cm_window_fold_sum(ring, mask)
+            assert cm_scatter.cm_window_fold_sum.launches == before + 1
+            torch.testing.assert_close(got, cm_scatter.cm_window_fold_sum_plain(ring, mask), rtol=0, atol=0)

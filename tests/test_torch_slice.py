@@ -4,7 +4,8 @@
   plan on the CPU and through the reference's default plan: the same final
   bank, counters, bytes and estimates; likewise one single-sketch stream,
   and one epoch stream through a HybridBank and a WindowedBank.
-* ``chip_smoke.py``'s phases (stream, bank, hybrid, window) rehearsed at
+* ``chip_smoke.py``'s phases (kernels, stream, bank, hybrid, window,
+  countmin, cm_window, board) rehearsed at
   a tiny size on the CPU, where every kernel wrapper runs its plain
   version.
 * ``import repro_torch`` and ``import chip_smoke`` pull in no ``jax`` and
@@ -87,7 +88,7 @@ def test_hybrid_and_window_slice_matches_reference(monkeypatch):
 def test_chip_smoke_phases_rehearse_on_the_cpu():
     reset_launches()
     errs = chip_smoke.phase_kernels("cpu", n=1 << 10, rows=11, configs=((8, 32), (16, 64)),
-                                    hybrid_rows=37, window=5)
+                                    hybrid_rows=37, window=5, cm_cells=1 << 16)
     assert set(errs) == set(chip_smoke.KERNEL_SOURCES) and max(errs.values()) == 0.0
     stream = chip_smoke.phase_stream("cpu", chunks=2, chunk_items=1 << 11, configs=((10, 64),), pipelines=3)
     assert stream["items"] == 1 << 12 and len(stream["configs"]) == 1
@@ -98,14 +99,41 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
     window = chip_smoke.phase_window("cpu", window=8, rows=16, epoch_items=1 << 10, p=8,
                                      hybrid_window=4, mr_base=2, mr_levels=2)
     assert window["epochs"] == 16 and window["hybrid_ring"]["window"] == 4
+    countmin = chip_smoke.phase_countmin("cpu", rows=12, ticks=2, tick_items=1 << 12, depth=3, width=64,
+                                         item_ids=1 << 10, probes=128)
+    assert countmin["items"] == 1 << 13 and countmin["probe_overcount_mean"] >= 0
+    cm_window = chip_smoke.phase_cm_window("cpu", window=8, rows=6, epoch_items=1 << 10, depth=2, width=32,
+                                           item_ids=1 << 10, probes=64, bytes_window=3)
+    assert cm_window["epochs"] == 16 and cm_window["rcmw_bytes"] > 0
+    board = chip_smoke.phase_board("cpu", streams=9, epochs=4, epoch_items=1 << 10, window=2, vocab=300,
+                                   p=6, depth=2, width=32)
+    assert board["flat"]["items_seen"] == 4 << 10 and board["windowed"]["streams_reported"] <= 9
     # on the CPU the wrappers run their plain versions and never count a launch
     assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+
+
+def test_profile_busy_time_counts_each_kernel_once():
+    # an aten op reports its kernels' device time as its own self time too;
+    # only the card's own entries (kernels, copies, fills) make the busy time
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    entries = [
+        SimpleNamespace(key="aten::bincount", device_type=DeviceType.CPU, self_device_time_total=118),
+        SimpleNamespace(key="kernelHistogram1D", device_type=DeviceType.CUDA, self_device_time_total=118),
+        SimpleNamespace(key="Memcpy DtoD", device_type=DeviceType.CUDA, self_device_time_total=47),
+        SimpleNamespace(key="aten::empty", device_type=DeviceType.CPU, self_device_time_total=0),
+        SimpleNamespace(key="idle kernel", device_type=DeviceType.CUDA, self_device_time_total=0),
+    ]
+    assert [e.key for e in chip_smoke._device_entries(entries)] == ["kernelHistogram1D", "Memcpy DtoD"]
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     code = (
         "import sys, repro_torch, repro_torch.interop, repro_torch.kernels, chip_smoke\n"
-        "import repro_torch.sketch.sparse, repro_torch.sketch.window\n"
+        "import repro_torch.sketch.sparse, repro_torch.sketch.window, repro_torch.sketch.countmin\n"
+        "import repro_torch.telemetry\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
