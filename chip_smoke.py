@@ -7,10 +7,10 @@ Run from a checkout of the repo on a machine with a CUDA card and the CUDA
 toolkit; it needs no arguments and no network.  Phases, each of which
 raises (exit code 1) when it fails:
 
-  build    compile the nine kernels (seven sources) from
+  build    compile the ten kernels (eight sources) from
            src/repro_torch/kernels/csrc with nvcc, one process per source,
-           all at once; print the seconds and ptxas's register and
-           shared-memory report.
+           all at once; print the seconds and ptxas's register,
+           shared-memory and spill report.
   kernels  each kernel against its plain PyTorch version on the card,
            bit for bit, at the main path's shapes and at ragged lengths,
            with the edge items 0, 0xFFFFFFFF and negative int32, and keys
@@ -23,7 +23,10 @@ raises (exit code 1) when it fails:
            preset at 0xFFFFFFF0 so that the adds wrap; cm_window_fold_sum
            on a (64, 1024, 4096) ring of counters >= 0xFFFFFFF0 with every
            slice live, a suffix, none live, W = 1, and a 35-counter plane
-           (the scalar kernel).
+           (the scalar kernel); rwkv_intra at (G, C, N) = (5120, 64, 64)
+           (the serve prefill's grid), (7, 40, 64), (3, 1, 64) and
+           (16, 64, 32), and under strong decay (decay scale 50), within
+           rtol 1e-5 and atol 1e-4, every output finite.
   stream   the paper's NIC deployment (Tab. IV), lengthened: 2^26 uint32
            items in 16 chunks of 2^22 through ``update_registers`` under
            "cuda" and "cuda_pipelined" (k = 8), for (p, H) in
@@ -73,18 +76,40 @@ raises (exit code 1) when it fails:
            Zipf(1.2), under "cuda" and "torch": report(exact=True) equal,
            report() within rtol 1e-6, topk(name, 5) equal for every
            stream, serialize() / window_bytes() equal.
+  serve    RWKV6-3B serving at full width (get_arch("rwkv6-3b"): 32 layers,
+           d_model 2560, 40 heads of 64, vocab 65536, chunk 64; 3.1 B
+           float32 parameters drawn on the card from a seeded generator):
+           8 requests of 1024-token prompts through engine.prefill (each
+           layer launches rwkv_intra once over 8 * 16 * 40 = 5120 cells),
+           32 greedy steps of engine.decode_loop, and a StreamSketch board
+           (p = 12, H = 64) over the request ids, prompt tokens and
+           generated tokens, as examples/serve_lm.py runs them.  Checks:
+           the prefill against the same prefill with rwkv_intra_plain
+           (last-position logits, the final states, the first greedy
+           token); prefill + teacher-forced decode_step against forward at
+           2 full-width layers; a 40-token (C = 40) and a 100-token (the
+           per-token scan) prompt against the plain run; tokens in the
+           vocabulary, logits finite; each board estimate within 4 sigma
+           of the exact distinct count.  Prints prefill and decode tokens
+           per second, peak device memory and rwkv_intra's share of the
+           prefill (its device time from the profiler over a prefill).
   timing   each kernel's device time (CUDA events over warm launches
-           queued back to back) and host time per call, its bound (bytes
-           over 3.35 TB/s), its plain version's time and, where one
-           PyTorch call computes the same function, that call's time.
+           queued back to back) and host time per call, its bound (the
+           larger of bytes over 3.35 TB/s and float32 operations over
+           67 TFLOP/s), its plain version's time and, where one PyTorch
+           call computes the same function, that call's time.
   profile  torch.profiler over a few stream chunks, bank ticks, hybrid
            ticks, full-window reads, count-min ticks, their label votes
-           alone and full-window reads of the count-min ring: wall and
-           device-busy time per step, idle share, top device entries.
+           alone, full-window reads of the count-min ring, full-width
+           RWKV6-3B prefills and decode steps: wall and device-busy time
+           per step, idle share, top device entries.
 
 The launch counters are zeroed just before the stream, bank, hybrid,
-window, countmin, cm_window and board phases (the main paths) and read just
-after; every kernel must have launched there.
+window, countmin, cm_window and board phases (the sketch paths) and read
+just after; the nine sketch kernels must have launched there.  They are
+zeroed again just before the serve phase and read just after; rwkv_intra
+must have launched there, once per layer of every prefill whose prompt a
+chunk divides.
 Before the last line it prints the kernels' JSON record and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -93,6 +118,8 @@ With no card it raises before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -116,6 +143,7 @@ from repro_torch.kernels.cm_scatter import (  # noqa: E402
 )
 from repro_torch.kernels.hash_rank import hash_rank, hash_rank_plain  # noqa: E402
 from repro_torch.kernels.hll_fused import hll_update_fused, hll_update_fused_plain  # noqa: E402
+from repro_torch.kernels.rwkv_intra import rwkv_intra, rwkv_intra_plain  # noqa: E402
 from repro_torch.kernels.sparse_scatter import sparse_scatter_coo, sparse_scatter_coo_plain  # noqa: E402
 from repro_torch.kernels.window_fold import (  # noqa: E402
     window_fold_max,
@@ -139,10 +167,15 @@ from repro_torch.sketch import (  # noqa: E402
 )
 from repro_torch.sketch.countmin import _label_update, cm_hash_index  # noqa: E402
 from repro_torch.sketch.murmur3 import murmur3_32_py, murmur3_64_py  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import rwkv6, transformer  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
 from repro_torch.telemetry import StreamSketch  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
 STREAM_CONFIGS = ((14, 32), (14, 64), (16, 32), (16, 64))
 STREAM_CHUNKS = 16
 STREAM_CHUNK_ITEMS = 1 << 22
@@ -177,6 +210,23 @@ BOARD_EPOCHS = 32
 BOARD_EPOCH_ITEMS = 1 << 20
 BOARD_WINDOW = 16
 GPT2_VOCAB = 50257  # the serve path's token streams
+# RWKV6-3B serving: launch/serve.py's --requests and --gen-len defaults,
+# the prompt lengthened to 16 chunks of 64
+SERVE_ARCH = "rwkv6-3b"
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
+CHECK_LAYERS = 2  # full-width layers of the teacher-forced and ragged legs
+TF_PROMPT, TF_STEPS = 128, 64  # prefill of 2 chunks, then 64 steps against forward of 3 chunks
+RAGGED_PROMPTS = (40, 100)  # one short chunk (C = 40), and the per-token scan
+INTRA_SHAPES = ((5120, 64, 64), (7, 40, 64), (3, 1, 64), (16, 64, 32))
+INTRA_STRONG = ((64, 64, 64), (2, 32, 32))  # decay scale 50
+INTRA_RTOL, INTRA_ATOL = 1e-5, 1e-4  # tests/test_rwkv_intra_kernel.py's tolerance
+# the kernel prefill against the plain one: within SERVE_NOISE_FACTOR x the
+# mean change that a relative N(0, SERVE_NOISE^2) error of the plain intra
+# term makes
+SERVE_NOISE, SERVE_NOISE_FACTOR = 2.0 ** -20, 2.0
+# prefill + teacher-forced decode vs forward (tests/test_serve.py allows
+# 0.1 / 0.15 at the reduced size)
+SERVE_TF_ATOL = 0.15
 
 KERNEL_SOURCES = {
     "hash_rank": ("src/repro_torch/kernels/csrc/hash_rank.cu", "src/repro/kernels/hash_rank.py:44"),
@@ -188,7 +238,9 @@ KERNEL_SOURCES = {
     "window_merge_max": ("src/repro_torch/kernels/csrc/window_fold.cu", "src/repro/kernels/window_fold.py:102"),
     "cm_scatter_add": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:94"),
     "cm_window_fold_sum": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:186"),
+    "rwkv_intra": ("src/repro_torch/kernels/csrc/rwkv_intra.cu", "src/repro/kernels/rwkv_intra.py:54"),
 }
+SERVE_KERNELS = ("rwkv_intra",)  # launched on the serve phase; the others on the sketch phases
 
 
 def _sorted_unique(values: np.ndarray) -> np.ndarray:
@@ -216,6 +268,32 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
     return err
 
 
+def _close_err(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: str) -> float:
+    """Max |got - want|; raises unless both are finite and |got - want| <=
+    atol + rtol * |want| everywhere."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shapes {tuple(got.shape)} vs {tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (got - want).abs()
+    if not bool((diff <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"{what}: max abs err {float(diff.max())} beyond rtol {rtol}, atol {atol}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _intra_inputs(g: int, c: int, n: int, gen: torch.Generator, device, decay_scale: float = 1.0) -> tuple:
+    """tests/test_rwkv_intra_kernel.py's inputs: r, k, v ~ N(0, 1), log-decays
+    -U(0.01, decay_scale) summed within the chunk, u ~ N(0, 0.3^2)."""
+    def normal(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=device) * std
+
+    r, k, v = normal(g, c, n), normal(g, c, n), normal(g, c, n)
+    lw = -(0.01 + (decay_scale - 0.01) * torch.rand((g, c, n), generator=gen, device=device))
+    lcum = torch.cumsum(lw, dim=1)
+    return r, k, v, lcum - lw, lcum, normal(g, n, std=0.3)
+
+
 def _stream_items(n: int, rng: np.random.Generator) -> np.ndarray:
     """n uint32 items with the edge values at the front."""
     values = rng.integers(0, 2**32, n, dtype=np.uint32)
@@ -237,12 +315,14 @@ def phase_build() -> dict:
             if "Used" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     print("[build] hll_fused: dynamic shared memory m bytes per block (65536 at p = 16); "
+          "rwkv_intra: (5 C (N + 1) + C^2 + N) * 4 bytes per block (99840 at C = N = 64); "
           "the other kernels use none")
     return seconds
 
 
 def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
-                  hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, cm_cells: int = CM_CELL_CAP) -> dict:
+                  hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, cm_cells: int = CM_CELL_CAP,
+                  intra_shapes=INTRA_SHAPES, intra_strong=INTRA_STRONG) -> dict:
     """Every kernel against its plain version at main-path and ragged sizes."""
     rng = np.random.default_rng(SEED)
     errs = {name: 0.0 for name in KERNEL_SOURCES}
@@ -391,7 +471,19 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
             _max_abs_err(cm_window_fold_sum(r, mask), cm_window_fold_sum_plain(r, mask),
                          f"cm_window_fold_sum {what}"),
         )
-    print(f"[kernels] bit-identical to their plain versions: max_abs_err {errs}")
+    # rwkv_intra: float32 sums in another order than the plain version's
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    cases = [(shape, 1.0) for shape in intra_shapes] + [(shape, 50.0) for shape in intra_strong]
+    for (g, c, nn), decay in cases:
+        args = _intra_inputs(g, c, nn, gen, device, decay_scale=decay)
+        errs["rwkv_intra"] = max(
+            errs["rwkv_intra"],
+            _close_err(rwkv_intra(*args), rwkv_intra_plain(*args), INTRA_RTOL, INTRA_ATOL,
+                       f"rwkv_intra (G, C, N) = {(g, c, nn)}, decay scale {decay}"),
+        )
+        del args
+    print(f"[kernels] sketch kernels bit-identical to their plain versions, rwkv_intra within rtol "
+          f"{INTRA_RTOL} atol {INTRA_ATOL}: max_abs_err {errs}")
     return errs
 
 
@@ -914,6 +1006,211 @@ def phase_board(device, streams: int = BOARD_STREAMS, epochs: int = BOARD_EPOCHS
     return result
 
 
+def _swap_intra(fn):
+    """Make ``repro_torch.models.rwkv6`` call ``fn`` for its intra term;
+    returns the function it called before (restore it in a finally)."""
+    before = rwkv6.rwkv_intra
+    rwkv6.rwkv_intra = fn
+    return before
+
+
+@contextlib.contextmanager
+def _activations(dtype: torch.dtype):
+    """Run the model with ``dtype`` activations (the tests' float32 leg)."""
+    before = model_common.ACT_DTYPE
+    model_common.ACT_DTYPE = dtype
+    try:
+        yield
+    finally:
+        model_common.ACT_DTYPE = before
+
+
+def _prefill_trio(model, batch, arch, kv_len: int):
+    """Three prefills of one batch: with the kernel, with rwkv_intra_plain,
+    and with rwkv_intra_plain's output times (1 + SERVE_NOISE * z), z ~ N(0,
+    1) drawn per element from a seeded generator -- the control that shows
+    how far a last-place change of the intra sums, such as another order of
+    summation makes, carries through the model.  Returns them and the
+    first's launches."""
+    before = rwkv_intra.launches
+    got = engine.prefill(model, batch, arch, kv_len)
+    launched = rwkv_intra.launches - before
+    real = _swap_intra(rwkv_intra_plain)
+    try:
+        want = engine.prefill(model, batch, arch, kv_len)
+        gen = torch.Generator(device=model.embed.device).manual_seed(SEED + 12)
+
+        def noisy(*args):
+            y = rwkv_intra_plain(*args)
+            return y * (1.0 + SERVE_NOISE * torch.randn(y.shape, generator=gen, device=y.device))
+
+        rwkv6.rwkv_intra = noisy
+        control = engine.prefill(model, batch, arch, kv_len)
+    finally:
+        _swap_intra(real)
+    return got, want, control, launched
+
+
+def _against_plain(trio, what: str) -> dict:
+    """The kernel prefill against the plain one: last-position logits and
+    final states, each no further from the plain run on average than
+    SERVE_NOISE_FACTOR times the control; the first greedy token equal but
+    where the plain run's two best logits lie within twice the control's
+    largest logit change."""
+    (logits, cache), (plain, plain_cache), (ctrl, ctrl_cache), _ = trio
+    out = {}
+    pairs = {"logits": (logits[:, -1].float(), plain[:, -1].float(), ctrl[:, -1].float()),
+             "state": (_states(cache), _states(plain_cache), _states(ctrl_cache))}
+    for name, (got, want, noise) in pairs.items():
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"{what} {name}: non-finite values")
+        err, ctrl_err = (got - want).abs(), (noise - want).abs()
+        row = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+               "control_max_abs_err": float(ctrl_err.max()), "control_mean_abs_err": float(ctrl_err.mean())}
+        if row["mean_abs_err"] > SERVE_NOISE_FACTOR * row["control_mean_abs_err"]:
+            raise AssertionError(f"{what} {name}: kernel vs plain {row} beyond {SERVE_NOISE_FACTOR} x the control")
+        out[name] = row
+    out["first_token_ties"] = _greedy_agrees(pairs["logits"][0], pairs["logits"][1],
+                                             2 * out["logits"]["control_max_abs_err"], f"{what} first token")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: prefill logits are not all finite")
+    return out
+
+
+def _states(cache) -> torch.Tensor:
+    return torch.cat([entry["s"].reshape(-1) for stage in cache["stages"] for entry in stage.values()])
+
+
+def _greedy_agrees(got_logits: torch.Tensor, want_logits: torch.Tensor, tol: float, what: str) -> int:
+    """The greedy tokens of two (B, V) logits agree, but where the two best
+    logits lie within ``tol`` (a tie the logits' error allows).  Returns the
+    number of such ties."""
+    got_tok, want_tok = got_logits.float().argmax(-1), want_logits.float().argmax(-1)
+    ties = 0
+    for b in torch.nonzero(got_tok != want_tok).reshape(-1).tolist():
+        gap = float(want_logits[b].float().max() - want_logits[b, got_tok[b]].float())
+        if gap > tol:
+            raise AssertionError(f"{what}: request {b} greedy token {int(got_tok[b])} vs {int(want_tok[b])}, "
+                                 f"logit gap {gap} beyond {tol}")
+        ties += 1
+    return ties
+
+
+def phase_serve(device, arch=None, requests: int = SERVE_REQUESTS, prompt_len: int = SERVE_PROMPT,
+                gen_len: int = SERVE_GEN, check_layers: int = CHECK_LAYERS, tf_prompt: int = TF_PROMPT,
+                tf_steps: int = TF_STEPS, ragged=RAGGED_PROMPTS, tf_atol: float = SERVE_TF_ATOL) -> dict:
+    """RWKV6-3B serving at full width (examples/serve_lm.py's flow), held to
+    its plain-intra run and to the teacher-forced forward."""
+    arch = arch if arch is not None else get_arch(SERVE_ARCH)
+    on_card = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    b, s, t = requests, prompt_len, gen_len
+    result = {"arch": arch.name, "layers": arch.n_layers, "d_model": arch.d_model, "requests": b,
+              "prompt_len": s, "gen_len": t}
+    with torch.inference_mode():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        model = transformer.init_params(arch, gen, device)
+        _sync(device)
+        result["init_s"] = time.perf_counter() - t0
+        result["params"] = sum(p.numel() for p in model.parameters())
+        if result["params"] != arch.param_count():
+            raise AssertionError(f"{result['params']} parameters, the config counts {arch.param_count()}")
+        prompts = torch.randint(0, arch.vocab_size, (b, s), generator=gen, device=device, dtype=torch.int32)
+        request_ids = torch.arange(1000, 1000 + b, dtype=torch.int32, device=device)
+        batch, kv_len = {"tokens": prompts}, s + t + 1
+
+        # warm-up prefill (cuBLAS handles, the kernel library), under the
+        # profiler for the intra kernel's own device time; CUDA events around
+        # each call would also count the card's waits on a slow host
+        intra_ms = None
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                engine.prefill(model, batch, arch, kv_len)
+                _sync(device)
+            intra = [e for e in _device_entries(prof.key_averages()) if "rwkv_intra" in e.key]
+            intra_ms = sum(e.self_device_time_total for e in intra) / 1e3 if intra else None
+        else:
+            engine.prefill(model, batch, arch, kv_len)
+        trio = _prefill_trio(model, batch, arch, kv_len)
+        result["intra_launches_per_prefill"] = trio[-1]
+        result["vs_plain"] = _against_plain(trio, "prefill")
+        del trio
+        # the same with float32 activations: no bf16 rounding for a
+        # last-place difference of the intra sums to flip and carry on
+        with _activations(torch.float32):
+            result["vs_plain_f32"] = _against_plain(_prefill_trio(model, batch, arch, kv_len), "float32 prefill")
+        # the kernel prefill once more, timed alone
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(model, batch, arch, kv_len)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        result["intra_ms_per_prefill"] = intra_ms
+        result["intra_share_of_prefill"] = None if intra_ms is None else intra_ms / (prefill_s * 1e3)
+        last = logits[:, -1].float()
+        first = torch.argmax(last, dim=-1).to(torch.int32)
+
+        _sync(device)
+        t0 = time.perf_counter()
+        generated, final = engine.decode_loop(model, cache, first, s, arch, steps=t)
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+        after, _ = engine.decode_step(model, final, generated[:, -1], s + t, arch)
+        if generated.shape != (b, t) or not bool(((generated >= 0) & (generated < arch.vocab_size)).all()):
+            raise AssertionError(f"generated tokens {tuple(generated.shape)} outside [0, {arch.vocab_size})")
+        if not (torch.isfinite(after).all() and torch.isfinite(_states(final)).all()):
+            raise AssertionError("decode logits or states are not all finite")
+        result.update(prefill_s=prefill_s, decode_s=decode_s, prefill_tokens_per_s=b * s / prefill_s,
+                      decode_tokens_per_s=b * t / decode_s)
+
+        board = StreamSketch(HLLConfig(p=12, hash_bits=64), device=device)
+        streams = {"request_ids": request_ids, "prompt_tokens": prompts, "generated_tokens": generated}
+        for name, items in streams.items():
+            board.observe(name, items)
+        report = board.report()
+        sigma = 1.04 / np.sqrt(board.cfg.m)
+        result["board"] = {}
+        for name, items in streams.items():
+            exact = int(torch.unique(items).numel())
+            est = report[name]["estimate"]
+            if abs(est - exact) > 4 * sigma * exact:
+                raise AssertionError(f"board {name}: estimate {est} vs {exact} distinct, beyond 4 sigma")
+            result["board"][name] = {"estimate": est, "exact": exact, "items_seen": report[name]["items_seen"]}
+        del model, cache, final, logits, generated
+        if on_card:
+            result["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+
+        # the teacher-forced invariant and the ragged prompts, at CHECK_LAYERS full-width layers
+        small = dataclasses.replace(arch, n_layers=check_layers)
+        model = transformer.init_params(small, gen, device)
+        toks = torch.randint(0, small.vocab_size, (b, tf_prompt + tf_steps), generator=gen, device=device,
+                             dtype=torch.int32)
+        full_logits, _, _ = transformer.forward(model, {"tokens": toks}, small)
+        pre_logits, c = engine.prefill(model, {"tokens": toks[:, :tf_prompt]}, small, tf_prompt + tf_steps)
+        tf_err = _close_err(pre_logits.float(), full_logits[:, :tf_prompt].float(), 0.0, tf_atol,
+                            "teacher-forced prefill vs forward")
+        for i in range(tf_steps):
+            step_logits, c = engine.decode_step(model, c, toks[:, tf_prompt + i], tf_prompt + i, small)
+            tf_err = max(tf_err, _close_err(step_logits, full_logits[:, tf_prompt + i].float(), 0.0, tf_atol,
+                                            f"teacher-forced decode step {i} vs forward"))
+        result["teacher_forced_max_abs_err"] = tf_err
+        result["ragged"] = {}
+        for length in ragged:
+            trio = _prefill_trio(model, {"tokens": toks[:, :length]}, small, length + 1)
+            chunked = length % min(small.rwkv_chunk_size, length) == 0
+            if on_card and trio[-1] != (check_layers if chunked else 0):
+                raise AssertionError(f"{length}-token prompt launched rwkv_intra {trio[-1]} times")
+            result["ragged"][length] = dict(_against_plain(trio, f"{length}-token prompt"), launches=trio[-1])
+    print(f"[serve] {json.dumps(result)}")
+    return result
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -956,8 +1253,15 @@ def _time_ms(fn, args_list, iters: int = 50, warmup: int = 3) -> tuple:
     return device_ms, (time.perf_counter() - t0) * 1e3 / iters
 
 
+def intra_flops(g: int, c: int, n: int) -> int:
+    """float32 operations of rwkv_intra on (G, C, N) cells: per pair s < t and
+    n a subtract, two multiplies and an add (the exp not counted); per (t, n)
+    three for the diagonal; per (t, s <= t, n) a multiply-add for y."""
+    return g * n * (4 * (c * (c - 1) // 2) + 3 * c + 2 * (c * (c + 1) // 2))
+
+
 def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: int = HYBRID_ROWS,
-                 window: int = WINDOW) -> dict:
+                 window: int = WINDOW, intra_shape=INTRA_SHAPES[0]) -> dict:
     """Kernel, plain and library times at the main path's shapes."""
     rng = np.random.default_rng(SEED + 2)
     cfg = HLLConfig(p=16, hash_bits=64)
@@ -1003,6 +1307,9 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
     cm_flat = cm_bank.reshape(-1)
     # cm_window_fold_sum over a (64, 1024, 4096) int32 ring (1 GiB), all live
     cm_ring = torch.randint(-16, 0, (window, rows, cmc.cells), dtype=torch.int32, device=device)
+    # rwkv_intra at the serve prefill's grid: 8 requests x 16 chunks x 40 heads
+    ig, ic, inn = intra_shape
+    intra_args = _intra_inputs(ig, ic, inn, gen, device)
     calls = {
         "hash_rank": (
             (lambda x: hash_rank(x, cfg), streams),
@@ -1060,13 +1367,27 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
             (lambda: cm_ring.sum(0, dtype=torch.int32), [()]),
             4 * cm_ring.numel() + 4 * rows * cmc.cells,
         ),
+        # no one PyTorch call computes the intra form: no library time
+        "rwkv_intra": (
+            (rwkv_intra, [intra_args]),
+            (rwkv_intra_plain, [intra_args]),
+            None,
+            4 * (6 * ig * ic * inn + ig * inn),
+        ),
     }
+    # float32 operations where the guide's peak table has a rate for them;
+    # the sketch kernels' integer work has none, so bytes bound them
+    flops = {"rwkv_intra": intra_flops(ig, ic, inn)}
     out = {}
     for name, (kernel, plain, library, nbytes) in calls.items():
         ms, host_ms = _time_ms(*kernel)
         plain_ms, plain_host_ms = _time_ms(*plain, iters=3)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops.get(name, 0) / F32_FLOPS_PER_S * 1e3
         out[name] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "library_ms": _time_ms(*library, iters=10)[0] if library else None,
             "host_ms": host_ms, "plain_host_ms": plain_host_ms,
         }
@@ -1086,7 +1407,8 @@ def _device_entries(averages) -> list:
 
 
 def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROWS,
-                  hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW) -> dict:
+                  hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, requests: int = SERVE_REQUESTS,
+                  prompt_len: int = SERVE_PROMPT) -> dict:
     """Where the main path's time goes: torch.profiler over a few steps.
 
     One step is one ``HyperLogLog.update`` of an n-item chunk under "cuda"
@@ -1097,8 +1419,10 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     (``estimate_window()`` of a fresh instance of the W = 64 ring: the
     three-fragment merge and the estimator), one count-min tick
     (``CountMinBank.update_many`` of n Zipf-keyed items into the (1024, 4,
-    1024) bank), its Topkapi label vote alone, or one full-window
-    ``fold_window()`` of the 3 GiB (64, 1024, 4, 1024) count-min ring.
+    1024) bank), its Topkapi label vote alone, one full-window
+    ``fold_window()`` of the 3 GiB (64, 1024, 4, 1024) count-min ring, one
+    full-width RWKV6-3B ``engine.prefill`` of 8 x 1024 tokens, or one
+    ``engine.decode_step`` of the 8 requests after it.
     Prints the wall time per step (without the profiler), the
     card's busy time per step (the sum of its kernel and copy times, from
     the profiler) and the idle share, and the top device entries by self
@@ -1150,6 +1474,16 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
         # the W - 1 pairwise label merges
         "cm_window_read": lambda: cm_ring.fold_window(plan=plan),
     }
+    # the serve path at full width
+    arch = get_arch(SERVE_ARCH)
+    sgen = torch.Generator(device=device).manual_seed(SEED + 11)
+    model = transformer.init_params(arch, sgen, device)
+    batch = {"tokens": torch.randint(0, arch.vocab_size, (requests, prompt_len), generator=sgen, device=device,
+                                     dtype=torch.int32)}
+    _, cache = engine.prefill(model, batch, arch, prompt_len + 2)
+    last = batch["tokens"][:, -1]
+    steps_fn["serve_prefill"] = lambda: engine.prefill(model, batch, arch, prompt_len + 2)
+    steps_fn["serve_decode"] = lambda: engine.decode_step(model, cache, last, prompt_len, arch)
     result = {}
     for name, step in steps_fn.items():
         # wall time without the profiler, whose own host cost would add idle
@@ -1167,6 +1501,9 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
         busy_ms = sum(e.self_device_time_total for e in rows_) / 1e3 / steps
         result[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                         "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None}
+        intra = [e for e in rows_ if "rwkv_intra" in e.key]
+        if intra:
+            result[name]["rwkv_intra_ms"] = sum(e.self_device_time_total for e in intra) / 1e3 / steps
         print(f"[profile] {name} step: {json.dumps(result[name])}")
         for e in sorted(rows_, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"[profile] {name}:   {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
@@ -1193,6 +1530,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
     device = torch.device("cuda")
+    # float32 products in full float32 (PyTorch's default, stated): the
+    # plain intra form and the inter-chunk einsums
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     _timed(phase_build)
     errs = _timed(phase_kernels, device)
@@ -1206,10 +1547,22 @@ def main() -> int:
     cm_window = _timed(phase_cm_window, device)
     board = _timed(phase_board, device)
     launches = launch_counts()
-    print(f"[main path] launches {launches}")
-    missing = [name for name, count in launches.items() if count == 0]
+    print(f"[main path] sketch paths' launches {launches}")
+    missing = [name for name, count in launches.items() if count == 0 and name not in SERVE_KERNELS]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the sketch paths: {missing}")
+
+    reset_launches()
+    serve = _timed(phase_serve, device)
+    serve_launches = launch_counts()
+    print(f"[main path] serve path's launches {serve_launches}")
+    missing = [name for name in SERVE_KERNELS if serve_launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the serve path: {missing}")
+    if serve["intra_launches_per_prefill"] != serve["layers"]:
+        raise AssertionError(f"rwkv_intra launched {serve['intra_launches_per_prefill']} times a prefill, "
+                             f"not once per layer ({serve['layers']})")
+    launches.update({name: serve_launches[name] for name in SERVE_KERNELS})
 
     timing = _timed(phase_timing, device)
     _timed(phase_profile, device)
@@ -1222,12 +1575,17 @@ def main() -> int:
           f"count-min ring read {cm_window['read_ms']:.4g} ms, observe {cm_window['observe_ms']:.4g} ms; "
           f"board ingest {board['flat']['ingest_items_per_s']['cuda']:.4g} items/s flat, "
           f"{board['windowed']['ingest_items_per_s']['cuda']:.4g} items/s windowed")
+    print(f"[timing] serve {serve['arch']} full width, {serve['requests']} x {serve['prompt_len']} prompt: "
+          f"prefill {serve['prefill_tokens_per_s']:.6g} tokens/s ({serve['prefill_s'] * 1e3:.6g} ms), "
+          f"decode {serve['decode_tokens_per_s']:.6g} tokens/s over {serve['gen_len']} steps; "
+          f"rwkv_intra {serve['intra_ms_per_prefill']} ms of it (share {serve['intra_share_of_prefill']}); "
+          f"peak device memory {serve['max_memory_allocated']} bytes")
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
-            "bound_ms": timing[name]["bound_ms"], "bound_by": "bytes",
+            "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
             "library_ms": timing[name]["library_ms"],
         }
         for name, (src, replaces) in KERNEL_SOURCES.items()

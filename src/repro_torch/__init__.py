@@ -5,6 +5,8 @@ reference.  The layout mirrors ``repro`` one module per module
 (``repro_torch/sketch/hll.py`` <-> ``repro/sketch/hll.py``); the TPU's
 Pallas kernels become hand-written CUDA kernels in
 ``repro_torch/kernels`` that build with nvcc at their first launch.
+Beside the sketches: ``configs``, the RWKV6 family of ``models`` and the
+``serve`` engine (prefill + decode) that the telemetry rides in.
 Nothing here imports ``jax`` or ``repro``.
 """
 

@@ -14,6 +14,15 @@ each, and ``n_items`` limbs; a ``WindowedCountMinBank`` as the same fields
 with a leading W axis plus ``cursor`` and ``epochs``.  Wire bytes (RHLL,
 RHLB, RHLW, RCMB, RCMW) need nothing here: both packages write and read
 the same formats.
+
+A model's weights cross as the reference's parameter tree: nested dicts
+of float32 numpy arrays (``embed``, ``final_norm``, ``lm_head`` and per
+stage ``stage<i>/sub<j>/{norm1, norm2, mixer/..., channel/...}`` stacked
+over the stage's layers), bit for bit.  The RWKV decode cache crosses in
+the reference's layout too: ``s`` as float32 and the bf16 token-shift
+entries ``x_prev`` / ``cm_x_prev`` as float32 (exact) or as their uint16
+bits, since numpy has no bfloat16 that torch reads.  Converting JAX arrays
+to numpy is the caller's part.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ from typing import Dict, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common, rwkv6, transformer
 from repro_torch.sketch import hll
 from repro_torch.sketch.bank import SketchBank
 from repro_torch.sketch.carrier import HyperLogLog
@@ -200,3 +211,119 @@ def cm_window_from_reference_state(
         counters.to(device), labels.to(device), votes.to(device), limbs.to(device),
         cursor, epochs.astype(np.int32), cfg,
     )
+
+
+# ----------------------------------------------------------------------------
+# model weights and the RWKV decode cache
+# ----------------------------------------------------------------------------
+
+
+def _float32_leaf(value, shape: tuple, where: str) -> np.ndarray:
+    arr = np.asarray(value)
+    if arr.shape != tuple(shape):
+        raise ValueError(f"{where}: expected shape {tuple(shape)}, got {arr.shape}")
+    if arr.dtype != np.float32:
+        raise TypeError(f"{where}: expected float32, got {arr.dtype}")
+    return arr
+
+
+def model_from_reference(params: Dict[str, object], arch: ArchConfig, device=None) -> transformer.Model:
+    """The port's model holding the reference's parameter tree, bit for bit."""
+    shapes = transformer.param_shapes(arch)
+    device = hll.resolve_device(device)
+
+    def tensor(arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
+
+    def leaf(tree, shape_tree, name, where):
+        return _float32_leaf(tree[name], shape_tree[name], f"{where}/{name}")
+
+    layers = []
+    for si, rep, j, kind in transformer.sublayers(arch):
+        where = f"stage{si}/sub{j}"
+        sub, sub_shapes = params[f"stage{si}"][f"sub{j}"], shapes[f"stage{si}"][f"sub{j}"]
+        parts = {
+            part: {name: tensor(leaf(sub[part], sub_shapes[part], name, f"{where}/{part}")[rep])
+                   for name in sub_shapes[part]}
+            for part in ("mixer", "channel")
+        }
+        layers.append(transformer.Block(
+            kind,
+            tensor(leaf(sub, sub_shapes, "norm1", where)[rep]),
+            tensor(leaf(sub, sub_shapes, "norm2", where)[rep]),
+            rwkv6.TimeMix(parts["mixer"]),
+            rwkv6.ChannelMix(parts["channel"]),
+        ))
+    lm_head = None if arch.tie_embeddings else tensor(leaf(params, shapes, "lm_head", ""))
+    return transformer.Model(tensor(leaf(params, shapes, "embed", "")),
+                             tensor(leaf(params, shapes, "final_norm", "")), layers, lm_head)
+
+
+def model_to_reference(model: transformer.Model, arch: ArchConfig) -> Dict[str, object]:
+    """The reference's parameter tree (float32 numpy arrays) of a port model."""
+    def array(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy().astype(np.float32)
+
+    out: Dict[str, object] = {"embed": array(model.embed), "final_norm": array(model.final_norm)}
+    if not arch.tie_embeddings:
+        out["lm_head"] = array(model.lm_head)
+    blocks = {}
+    for (si, rep, j, _), block in zip(transformer.sublayers(arch), model.layers):
+        blocks.setdefault((si, j), []).append(block)
+    for (si, j), stack in blocks.items():
+        out.setdefault(f"stage{si}", {})[f"sub{j}"] = {
+            "norm1": np.stack([array(b.norm1) for b in stack]),
+            "norm2": np.stack([array(b.norm2) for b in stack]),
+            "mixer": {name: np.stack([array(b.mixer[name]) for b in stack])
+                      for name in rwkv6.param_shapes(arch)},
+            "channel": {name: np.stack([array(b.channel[name]) for b in stack])
+                        for name in rwkv6.channel_param_shapes(arch)},
+        }
+    return out
+
+
+def _bf16_from_reference(value, where: str) -> torch.Tensor:
+    """A bf16 tensor from float32 values (which must be bf16 values) or uint16 bits."""
+    arr = np.asarray(value)
+    if arr.dtype == np.uint16:
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
+    if arr.dtype != np.float32:
+        raise TypeError(f"{where}: expected float32 or uint16 bits of bf16, got {arr.dtype}")
+    f32 = torch.from_numpy(np.array(arr))
+    out = f32.to(torch.bfloat16)
+    if not torch.equal(out.float(), f32):
+        raise ValueError(f"{where}: float32 values that are not bf16 values")
+    return out
+
+
+def rwkv_cache_from_reference(cache: Dict[str, object], arch: ArchConfig, device=None) -> Dict[str, object]:
+    """The port's RWKV decode cache from the reference's (see the module note)."""
+    device = hll.resolve_device(device)
+    out = {"stages": []}
+    for si, (pattern, repeats) in enumerate(transformer.layer_stages(arch)):
+        stage = {}
+        for j, _ in enumerate(pattern):
+            entry, where = cache["stages"][si][f"sub{j}"], f"stages[{si}]/sub{j}"
+            n, d = arch.rwkv_head_dim, arch.d_model
+            s = np.asarray(entry["s"])
+            batch = s.shape[1] if s.ndim == 5 else -1
+            _float32_leaf(s, (repeats, batch, arch.n_heads, n, n), f"{where}/s")
+            moved = {"s": torch.from_numpy(np.array(s))}
+            for name in ("x_prev", "cm_x_prev"):
+                t = _bf16_from_reference(entry[name], f"{where}/{name}")
+                if tuple(t.shape) != (repeats, batch, d):
+                    raise ValueError(f"{where}/{name}: expected {(repeats, batch, d)}, got {tuple(t.shape)}")
+                moved[name] = t.to(common.ACT_DTYPE)
+            stage[f"sub{j}"] = {name: t.to(device) for name, t in moved.items()}
+        out["stages"].append(stage)
+    return out
+
+
+def rwkv_cache_to_reference(cache: Dict[str, object]) -> Dict[str, object]:
+    """The reference's RWKV cache layout as numpy: ``s`` float32, the
+    token-shift entries float32 (their bf16 values, exactly)."""
+    return {"stages": [
+        {sub: {name: t.detach().cpu().float().numpy() for name, t in entry.items()}
+         for sub, entry in stage.items()}
+        for stage in cache["stages"]
+    ]}

@@ -11,6 +11,7 @@ One module per TPU kernel of the reference (``repro/kernels``):
   window_fold.window_merge_max      <- window_fold.py::window_merge_max
   cm_scatter.cm_scatter_add         <- cm_scatter.py::cm_scatter_add
   cm_scatter.cm_window_fold_sum     <- cm_scatter.py::cm_window_fold_sum
+  rwkv_intra.rwkv_intra             <- rwkv_intra.py::rwkv_intra
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.  Each wrapper counts its launches in a plain
@@ -35,6 +36,7 @@ KERNELS = {
     "window_merge_max": ("window_fold", "window_merge_max"),
     "cm_scatter_add": ("cm_scatter", "cm_scatter_add"),
     "cm_window_fold_sum": ("cm_scatter", "cm_window_fold_sum"),
+    "rwkv_intra": ("rwkv_intra", "rwkv_intra"),
 }
 
 

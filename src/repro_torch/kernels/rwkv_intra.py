@@ -1,0 +1,96 @@
+"""rwkv_intra: RWKV6's intra-chunk quadratic form, float32.
+
+Replaces the TPU kernel ``repro/kernels/rwkv_intra.py::rwkv_intra``
+(``_intra_kernel``), which computes, for each of G = B * NC * H cells (one
+chunk of one head of one sequence) of (C, N) tiles::
+
+    A[t,s]  = sum_n r[t,n] k[s,n] exp(Lex[t,n] - L[s,n])     (s < t)
+    diag[t] = sum_n r[t,n] u[n] k[t,n]
+    y[t]    = sum_{s<t} A[t,s] v[s] + diag[t] v[t]
+
+the term ``models/rwkv6.py::time_mix_chunked`` adds to the inter-chunk
+term.  The CUDA source is ``csrc/rwkv_intra.cu``: one block per cell, the
+five tiles and u in dynamic shared memory (99,840 bytes at C = N = 64),
+threads over the (t, s) pairs forming A with the pairwise exp -- never
+exp(Lex) * exp(-L), which overflows under strong decay -- then threads
+over (t, n) forming y.  What bounds it on the H100 at the serve shape
+(G = 5120, C = N = 64): bytes, 504.6 MB read and written once, 0.151 ms at
+3.35 TB/s, against 0.061 ms for its ~4.1 GFLOP of float32 at 67 TFLOP/s.
+It takes 1 <= C <= 64 and 1 <= N <= 64 (the model's chunk is C = 64, or
+the whole prompt when it is shorter; N is the head width, 64 at full size
+and 32 in the reduced config).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_C = 64
+MAX_N = 64
+PLAIN_BLOCK_CELLS = 512  # the plain version's (g, C, C, N) transient: 512 MiB at C = N = 64
+
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _check(r, k, v, lex, lcum, u) -> tuple:
+    if r.dim() != 3:
+        raise ValueError(f"r must be (G, C, N), got {tuple(r.shape)}")
+    g, c, n = r.shape
+    for name, t in (("k", k), ("v", v), ("lex", lex), ("lcum", lcum)):
+        if t.shape != r.shape:
+            raise ValueError(f"{name} must be {tuple(r.shape)} like r, got {tuple(t.shape)}")
+    if u.shape != (g, n):
+        raise ValueError(f"u must be ({g}, {n}), got {tuple(u.shape)}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("lex", lex), ("lcum", lcum), ("u", u)):
+        if not t.is_floating_point():
+            raise TypeError(f"{name} must be floating point, got {t.dtype}")
+    return g, c, n
+
+
+def rwkv_intra_plain(r, k, v, lex, lcum, u) -> torch.Tensor:
+    """The plain PyTorch version: ``rwkv_intra_ref``'s math, in blocks of cells."""
+    g, c, n = _check(r, k, v, lex, lcum, u)
+    rf, kf, vf, lexf, lf, uf = (t.float() for t in (r, k, v, lex, lcum, u))
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), diagonal=-1)[None, :, :, None]
+    out = []
+    for lo in range(0, g, PLAIN_BLOCK_CELLS):
+        sl = slice(lo, lo + PLAIN_BLOCK_CELLS)
+        pair = lexf[sl, :, None, :] - lf[sl, None, :, :]  # (g, C, C, N)
+        a = torch.sum(
+            torch.where(mask, rf[sl, :, None] * kf[sl, None, :] * torch.exp(pair), 0.0), dim=-1
+        )
+        diag = torch.einsum("gtn,gn,gtn->gt", rf[sl], uf[sl], kf[sl])
+        out.append(torch.einsum("gts,gsn->gtn", a, vf[sl]) + diag[..., None] * vf[sl])
+    return torch.cat(out) if out else torch.zeros((0, c, n), dtype=torch.float32, device=r.device)
+
+
+def rwkv_intra(r, k, v, lex, lcum, u) -> torch.Tensor:
+    """Intra-chunk output (G, C, N) float32 of (G, C, N) tiles and (G, N) bonuses.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    tensors = (r, k, v, lex, lcum, u)
+    if all(t.device.type == "cpu" for t in tensors):
+        return rwkv_intra_plain(*tensors)
+    g, c, n = _check(*tensors)
+    device = _build.require_cuda(*tensors)
+    if not (1 <= c <= MAX_C and 1 <= n <= MAX_N):
+        raise ValueError(f"the kernel takes 1 <= C <= {MAX_C} and 1 <= N <= {MAX_N}, got C={c}, N={n}")
+    rf, kf, vf, lexf, lf, uf = (t.to(torch.float32).contiguous() for t in tensors)
+    y = torch.empty((g, c, n), dtype=torch.float32, device=device)
+    if g == 0:
+        return y
+    fn = _build.function("rwkv_intra", "rwkv_intra_launch", _ARGTYPES)
+    with torch.cuda.device(device):
+        err = fn(rf.data_ptr(), kf.data_ptr(), vf.data_ptr(), lexf.data_ptr(), lf.data_ptr(), uf.data_ptr(),
+                 y.data_ptr(), g, c, n, _build.stream(device))
+    _build.check("rwkv_intra", err, "rwkv_intra")
+    rwkv_intra.launches += 1
+    return y
+
+
+rwkv_intra.launches = 0

@@ -1,0 +1,221 @@
+"""Decoder backbone assembly: stages, parameters and the full-sequence forward.
+
+Port of ``repro/models/transformer.py`` for the RWKV6 family (``rwkv``
+sublayers: RWKV6 time mix + squared-ReLU channel mix).  Layers are grouped
+into *stages* -- (pattern, repeats) pairs -- as in the reference; the
+reference scans each stage over stacked parameters, the port keeps one
+``Block`` per sublayer in a flat layer list, in stage order, and runs them
+in a Python loop.  The ``attn`` and ``rec`` sublayers and MoE channel
+mixers raise ``NotImplementedError``: they come with the attention slice
+(ROADMAP A.12).  ``loss_fn`` waits for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import common, rwkv6
+from repro_torch.sketch.hll import resolve_device
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A.12); the port runs the rwkv family")
+
+
+# ----------------------------------------------------------------------------
+# stage structure
+# ----------------------------------------------------------------------------
+
+
+def layer_stages(arch: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """[(sublayer pattern, repeats)] covering exactly n_layers layers."""
+    if arch.block_pattern is None:
+        kind = "rwkv" if arch.mixer == "rwkv6" else "attn"
+        return [((kind,), arch.n_layers)]
+    pat = tuple(arch.block_pattern)
+    full = arch.n_layers // len(pat)
+    rem = arch.n_layers - full * len(pat)
+    stages: List[Tuple[Tuple[str, ...], int]] = [(pat, full)]
+    if rem:
+        stages.append((tuple(pat[:rem]), 1))
+    return stages
+
+
+def sublayers(arch: ArchConfig) -> List[Tuple[int, int, int, str]]:
+    """(stage, repeat, sub, kind) of every sublayer, in the layer list's order."""
+    return [
+        (si, rep, j, kind)
+        for si, (pattern, repeats) in enumerate(layer_stages(arch))
+        for rep in range(repeats)
+        for j, kind in enumerate(pattern)
+    ]
+
+
+def _check_supported(arch: ArchConfig) -> None:
+    if arch.moe is not None:
+        raise _unported("the MoE channel mixer")
+    for _, _, _, kind in sublayers(arch):
+        if kind != "rwkv":
+            raise _unported(f"the {kind!r} sublayer")
+
+
+# ----------------------------------------------------------------------------
+# parameters
+# ----------------------------------------------------------------------------
+
+
+class Block(nn.Module):
+    """One pre-norm residual sublayer: two norms, a mixer, a channel mix."""
+
+    def __init__(self, kind: str, norm1: torch.Tensor, norm2: torch.Tensor,
+                 mixer: rwkv6.TimeMix, channel: rwkv6.ChannelMix):
+        super().__init__()
+        self.kind = kind
+        self.norm1 = nn.Parameter(norm1, requires_grad=False)
+        self.norm2 = nn.Parameter(norm2, requires_grad=False)
+        self.mixer = mixer
+        self.channel = channel
+
+
+class Model(nn.Module):
+    """Embedding, the layer list (stage order), final norm and LM head."""
+
+    def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor, layers: List[Block],
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        self.layers = nn.ModuleList(layers)
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
+
+
+def param_shapes(arch: ArchConfig) -> Dict[str, object]:
+    """The reference's parameter tree as shapes, per stage stacked over repeats."""
+    _check_supported(arch)
+    d = arch.d_model
+    shapes: Dict[str, object] = {"embed": (arch.vocab_size, d), "final_norm": (d,)}
+    if not arch.tie_embeddings:
+        shapes["lm_head"] = (d, arch.vocab_size)
+    for si, (pattern, repeats) in enumerate(layer_stages(arch)):
+        def stacked(tree):
+            return {name: (repeats, *shape) for name, shape in tree.items()}
+
+        shapes[f"stage{si}"] = {
+            f"sub{j}": {
+                "norm1": (repeats, d), "norm2": (repeats, d),
+                "mixer": stacked(rwkv6.param_shapes(arch)),
+                "channel": stacked(rwkv6.channel_param_shapes(arch)),
+            }
+            for j, _ in enumerate(pattern)
+        }
+    return shapes
+
+
+def init_params(arch: ArchConfig, generator: torch.Generator, device=None) -> Model:
+    """The full model, drawn from ``generator`` on ``device`` (the card by default)."""
+    _check_supported(arch)
+    device = resolve_device(device)
+    d = arch.d_model
+    embed = common.embed_init(generator, arch.vocab_size, d, device)
+    lm_head = None if arch.tie_embeddings else common.dense_init(generator, d, arch.vocab_size, device)
+    layers = []
+    for _, _, _, kind in sublayers(arch):
+        ones = torch.ones((d,), dtype=common.PARAM_DTYPE, device=device)
+        layers.append(Block(
+            kind, ones, ones.clone(),
+            rwkv6.TimeMix(rwkv6.init_params(arch, generator, device)),
+            rwkv6.ChannelMix(rwkv6.init_channel_params(arch, generator, device)),
+        ))
+    return Model(embed, torch.ones((d,), dtype=common.PARAM_DTYPE, device=device), layers, lm_head)
+
+
+# ----------------------------------------------------------------------------
+# forward (prefill)
+# ----------------------------------------------------------------------------
+
+
+def _apply_sublayer(kind: str, sub: Block, x: torch.Tensor, positions, arch: ArchConfig,
+                    collect_state: bool):
+    """Pre-norm residual sublayer. Returns (x, aux_loss, state_or_None)."""
+    if kind != "rwkv":
+        raise _unported(f"the {kind!r} sublayer")
+    h = common.rms_norm(x, sub.norm1, arch.norm_eps)
+    state = None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if arch.rwkv_chunk_size > 0:
+        mixed, rwkv_state = rwkv6.time_mix_chunked(sub.mixer, h, arch, chunk=arch.rwkv_chunk_size)
+    else:
+        mixed, rwkv_state = rwkv6.time_mix(sub.mixer, h, arch)
+    if collect_state:
+        state = {"s": rwkv_state, "x_prev": h[:, -1]}
+    x = x + mixed
+
+    h2 = common.rms_norm(x, sub.norm2, arch.norm_eps)
+    ch = rwkv6.channel_mix(sub.channel, h2)
+    if collect_state:
+        state = dict(state, cm_x_prev=h2[:, -1])
+    # the sequence-parallel constraint of the sharding slice (ROADMAP A.12)
+    # goes here; on one device there is nothing to do
+    return x + ch, aux, state
+
+
+def embed_tokens(model: Model, batch, arch: ArchConfig) -> torch.Tensor:
+    tokens = batch["tokens"]
+    x = model.embed[tokens.long()].to(common.ACT_DTYPE)
+    if arch.frontend_stub_len > 0 and "frontend_embeds" in batch:
+        fe = batch["frontend_embeds"].to(common.ACT_DTYPE)
+        stub = fe.shape[1]
+        x = torch.cat([fe, x[:, stub:]], dim=1)
+    return x
+
+
+def default_positions(arch: ArchConfig, batch_size: int, seq: int, device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.int32, device=device).expand(batch_size, seq)
+    if arch.mrope:
+        return pos.expand(3, batch_size, seq)
+    return pos
+
+
+def _head(model: Model, arch: ArchConfig, dtype: torch.dtype) -> torch.Tensor:
+    return (model.embed.T if arch.tie_embeddings else model.lm_head).to(dtype)
+
+
+def forward(model: Model, batch, arch: ArchConfig, *, collect_state: bool = False):
+    """Full-sequence forward.
+
+    Returns (logits (B, S, V), aux_loss, states) -- states is a per-stage
+    list of sublayer caches stacked over the stage's layers when
+    collect_state (prefill), else None.
+    """
+    x = embed_tokens(model, batch, arch)
+    b, s, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = default_positions(arch, b, s, x.device)
+
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    all_states = [] if collect_state else None
+    layer = iter(model.layers)
+    for pattern, repeats in layer_stages(arch):
+        per_layer = []
+        for _ in range(repeats):
+            states = {}
+            for j, kind in enumerate(pattern):
+                x, aux_j, st = _apply_sublayer(kind, next(layer), x, positions, arch, collect_state)
+                total_aux = total_aux + aux_j
+                states[f"sub{j}"] = st
+            per_layer.append(states)
+        if collect_state:
+            all_states.append({
+                f"sub{j}": {key: torch.stack([st[f"sub{j}"][key] for st in per_layer])
+                            for key in per_layer[0][f"sub{j}"]}
+                for j in range(len(pattern))
+            })
+
+    x = common.rms_norm(x, model.final_norm, arch.norm_eps)
+    logits = x @ _head(model, arch, x.dtype)
+    return logits, total_aux, all_states

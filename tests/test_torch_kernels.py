@@ -15,7 +15,11 @@ or the reference's jnp path at p = 16:
   cm_scatter_add    d in {1, 3, 4, 16}, w up to 2^16, keys -1 and B dropped,
                     counters preset near 2^32 so that adds wrap;
   cm_window_fold_sum  masks all live, a suffix, none live, W = 1, sums that
-                    wrap past 2^32.
+                    wrap past 2^32;
+  rwkv_intra        the reference kernel test's (G, C, N), a short chunk,
+                    C = 1, and strong decay, against ``rwkv_intra_ref`` and
+                    the Pallas kernel in interpret mode, within rtol 1e-5
+                    and atol 1e-4 (float32 sums in another order).
 
 The ``gpu`` tests hold each CUDA kernel to its plain version on the card.
 """
@@ -29,6 +33,7 @@ from repro.kernels import bank_scatter as ref_bank_scatter
 from repro.kernels import bucket_fold as ref_bucket_fold
 from repro.kernels import hll_fused as ref_hll_fused
 from repro.kernels import ref as ref_oracles
+from repro.kernels import rwkv_intra as ref_rwkv_intra
 from repro.sketch.backends import bank_update_jnp, sparse_merge, sparse_merge_cells
 from repro.sketch.backends import window_fold as ref_window_fold
 from repro.sketch.backends import window_fold_jnp, window_merge, window_merge_jnp
@@ -36,7 +41,8 @@ from repro.sketch.backends import cm_update as ref_cm_update
 from repro.sketch.backends import cm_update_jnp, cm_window_fold, cm_window_fold_jnp
 from repro.sketch.countmin import CMConfig as RefCMConfig
 from repro.sketch.hll import HLLConfig as RefConfig
-from repro_torch.kernels import bank_scatter, bucket_fold, cm_scatter, hll_fused, sparse_scatter, window_fold
+from repro_torch.kernels import bank_scatter, bucket_fold, cm_scatter, hll_fused, rwkv_intra, sparse_scatter
+from repro_torch.kernels import window_fold
 from repro_torch.sketch import hll
 from repro_torch.sketch.countmin import CMConfig
 from repro_torch.sketch.hll import HLLConfig
@@ -363,6 +369,66 @@ def test_cm_window_fold_sum_wide_matches_reference_jnp_fold():
 
 
 # ----------------------------------------------------------------------------
+# rwkv_intra
+# ----------------------------------------------------------------------------
+
+INTRA_TOL = dict(rtol=1e-5, atol=1e-4)  # tests/test_rwkv_intra_kernel.py's tolerance
+
+
+def _intra_inputs(g, c, n, seed=0, decay_scale=1.0):
+    """tests/test_rwkv_intra_kernel.py's inputs, as float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(0, 1, (g, c, n)).astype(np.float32) for _ in range(3))
+    lw = -rng.uniform(0.01, decay_scale, (g, c, n)).astype(np.float32)
+    lcum = np.cumsum(lw, axis=1, dtype=np.float32)
+    u = rng.normal(0, 0.3, (g, n)).astype(np.float32)
+    return r, k, v, lcum - lw, lcum, u
+
+
+@pytest.mark.parametrize("g,c,n", [(1, 8, 16), (4, 32, 64), (2, 64, 64), (3, 40, 32), (5, 1, 64)])
+def test_rwkv_intra_plain_matches_reference_oracle_and_kernel(g, c, n):
+    args = _intra_inputs(g, c, n, seed=g * c)
+    got = rwkv_intra.rwkv_intra(*(torch.from_numpy(a) for a in args))
+    assert got.dtype == torch.float32 and got.shape == (g, c, n)
+    jargs = [jnp.asarray(a) for a in args]
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_rwkv_intra.rwkv_intra_ref(*jargs)), **INTRA_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_rwkv_intra.rwkv_intra(*jargs, interpret=True)),
+                               **INTRA_TOL)
+
+
+@pytest.mark.parametrize("g,c,n", [(2, 32, 32), (3, 64, 64)])
+def test_rwkv_intra_plain_strong_decay_stable(g, c, n):
+    args = _intra_inputs(g, c, n, seed=7, decay_scale=50.0)  # exp(-L) alone overflows here
+    got = rwkv_intra.rwkv_intra_plain(*(torch.from_numpy(a) for a in args)).numpy()
+    assert np.isfinite(got).all()
+    jargs = [jnp.asarray(a) for a in args]
+    np.testing.assert_allclose(got, np.asarray(ref_rwkv_intra.rwkv_intra_ref(*jargs)), **INTRA_TOL)
+    np.testing.assert_allclose(got, np.asarray(ref_rwkv_intra.rwkv_intra(*jargs, interpret=True)), **INTRA_TOL)
+
+
+def test_rwkv_intra_plain_blocks_of_cells_change_nothing(monkeypatch):
+    args = [torch.from_numpy(a) for a in _intra_inputs(7, 16, 8, seed=3)]
+    whole = rwkv_intra.rwkv_intra_plain(*args)
+    monkeypatch.setattr(rwkv_intra, "PLAIN_BLOCK_CELLS", 2)
+    torch.testing.assert_close(rwkv_intra.rwkv_intra_plain(*args), whole, rtol=0, atol=0)
+
+
+def test_rwkv_intra_validates_shapes_and_types():
+    r, k, v, lex, lcum, u = (torch.from_numpy(a) for a in _intra_inputs(2, 8, 4))
+    with pytest.raises(ValueError, match="like r"):
+        rwkv_intra.rwkv_intra(r, k[:, :4], v, lex, lcum, u)
+    with pytest.raises(ValueError, match="u must be"):
+        rwkv_intra.rwkv_intra(r, k, v, lex, lcum, u[:1])
+    with pytest.raises(ValueError, match=r"\(G, C, N\)"):
+        rwkv_intra.rwkv_intra(r[0], k[0], v[0], lex[0], lcum[0], u[0])
+    with pytest.raises(TypeError, match="floating point"):
+        rwkv_intra.rwkv_intra(r, k.to(torch.int32), v, lex, lcum, u)
+    before = rwkv_intra.rwkv_intra.launches
+    rwkv_intra.rwkv_intra(r, k, v, lex, lcum, u)  # CPU tensors: the plain version, no launch
+    assert rwkv_intra.rwkv_intra.launches == before
+
+
+# ----------------------------------------------------------------------------
 # the CUDA kernels on the card
 # ----------------------------------------------------------------------------
 
@@ -467,3 +533,21 @@ def test_cm_window_fold_sum_kernel_matches_plain_on_card():
             got = cm_scatter.cm_window_fold_sum(ring, mask)
             assert cm_scatter.cm_window_fold_sum.launches == before + 1
             torch.testing.assert_close(got, cm_scatter.cm_window_fold_sum_plain(ring, mask), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_rwkv_intra_kernel_matches_plain_on_card():
+    _need_card()
+    cases = [((g, c, n), 1.0) for g, c, n in ((5120, 64, 64), (7, 40, 64), (3, 1, 64), (16, 64, 32), (1, 8, 16))]
+    cases += [((64, 64, 64), 50.0), ((2, 32, 32), 50.0)]
+    for (g, c, n), decay in cases:
+        args = [torch.from_numpy(a).cuda() for a in _intra_inputs(g, c, n, seed=c * n, decay_scale=decay)]
+        before = rwkv_intra.rwkv_intra.launches
+        got = rwkv_intra.rwkv_intra(*args)
+        torch.cuda.synchronize()
+        assert rwkv_intra.rwkv_intra.launches == before + 1
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, rwkv_intra.rwkv_intra_plain(*args), **INTRA_TOL)
+    wide = [torch.from_numpy(a).cuda() for a in _intra_inputs(2, 65, 8)]
+    with pytest.raises(ValueError, match="1 <= C <= 64"):
+        rwkv_intra.rwkv_intra(*wide)

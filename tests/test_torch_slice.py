@@ -5,11 +5,11 @@
   bank, counters, bytes and estimates; likewise one single-sketch stream,
   and one epoch stream through a HybridBank and a WindowedBank.
 * ``chip_smoke.py``'s phases (kernels, stream, bank, hybrid, window,
-  countmin, cm_window, board) rehearsed at
-  a tiny size on the CPU, where every kernel wrapper runs its plain
+  countmin, cm_window, board, serve) rehearsed at a tiny size on the CPU
+  (serve: the reduced RWKV6-3B), where every kernel wrapper runs its plain
   version.
-* ``import repro_torch`` and ``import chip_smoke`` pull in no ``jax`` and
-  nothing of ``repro``.
+* ``import repro_torch``, its model and serve modules and ``import
+  chip_smoke`` pull in no ``jax`` and nothing of ``repro``.
 """
 
 import os
@@ -88,7 +88,8 @@ def test_hybrid_and_window_slice_matches_reference(monkeypatch):
 def test_chip_smoke_phases_rehearse_on_the_cpu():
     reset_launches()
     errs = chip_smoke.phase_kernels("cpu", n=1 << 10, rows=11, configs=((8, 32), (16, 64)),
-                                    hybrid_rows=37, window=5, cm_cells=1 << 16)
+                                    hybrid_rows=37, window=5, cm_cells=1 << 16,
+                                    intra_shapes=((3, 64, 8), (2, 1, 16)), intra_strong=((2, 16, 8),))
     assert set(errs) == set(chip_smoke.KERNEL_SOURCES) and max(errs.values()) == 0.0
     stream = chip_smoke.phase_stream("cpu", chunks=2, chunk_items=1 << 11, configs=((10, 64),), pipelines=3)
     assert stream["items"] == 1 << 12 and len(stream["configs"]) == 1
@@ -112,6 +113,32 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
     assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
 
 
+def test_chip_smoke_serve_phase_rehearses_on_the_cpu():
+    reset_launches()
+    arch = chip_smoke.get_arch(chip_smoke.SERVE_ARCH).reduced()
+    serve = chip_smoke.phase_serve("cpu", arch=arch, requests=2, prompt_len=128, gen_len=2, tf_prompt=64,
+                                   tf_steps=4, ragged=(40, 100))
+    assert serve["params"] == arch.param_count() and serve["layers"] == 2
+    assert serve["vs_plain"]["logits"]["max_abs_err"] == 0.0  # the plain version on both sides here
+    assert serve["teacher_forced_max_abs_err"] <= chip_smoke.SERVE_TF_ATOL
+    assert {row["exact"] for row in serve["board"].values()} >= {2}
+    assert set(serve["ragged"]) == {40, 100}
+    assert launch_counts()["rwkv_intra"] == 0
+
+
+def test_chip_smoke_control_catches_a_wrong_intra_term(monkeypatch):
+    # a kernel off by more than the sums' last places fails the serve check
+    arch = chip_smoke.get_arch(chip_smoke.SERVE_ARCH).reduced()
+    model = chip_smoke.transformer.init_params(arch, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": torch.randint(0, arch.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))}
+    wrong = lambda *args: chip_smoke.rwkv_intra_plain(*args) * 1.01
+    monkeypatch.setattr(chip_smoke.rwkv6, "rwkv_intra", wrong)
+    with chip_smoke._activations(torch.float32):
+        trio = chip_smoke._prefill_trio(model, batch, arch, 65)
+    with pytest.raises(AssertionError, match="control"):
+        chip_smoke._against_plain(trio, "prefill")
+
+
 def test_profile_busy_time_counts_each_kernel_once():
     # an aten op reports its kernels' device time as its own self time too;
     # only the card's own entries (kernels, copies, fills) make the busy time
@@ -133,7 +160,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     code = (
         "import sys, repro_torch, repro_torch.interop, repro_torch.kernels, chip_smoke\n"
         "import repro_torch.sketch.sparse, repro_torch.sketch.window, repro_torch.sketch.countmin\n"
-        "import repro_torch.telemetry\n"
+        "import repro_torch.telemetry, repro_torch.configs, repro_torch.models.rwkv6\n"
+        "import repro_torch.models.transformer, repro_torch.models.registry, repro_torch.serve.engine\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
