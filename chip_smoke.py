@@ -16,7 +16,10 @@ raises (exit code 1) when it fails:
            with the edge items 0, 0xFFFFFFFF and negative int32, and keys
            -1 and B for the bank; hash/rank also against the pure-python
            Murmur3 oracles; sparse_scatter_coo at p in {4, 8, 12, 16} with
-           rows -1 and B and rank-0 entries; window_fold_max with every
+           rows -1 and B and rank-0 entries, and on adversarial streams
+           (every triple on one cell, one row at p = 16 spanning four
+           tiles, only dropped entries, rows * m not a multiple of 2^14,
+           ranks past 2^18) and on the global path; window_fold_max with every
            slice live, a suffix, none live, and W = 1; window_merge_max at
            K = 3; cm_scatter_add at d in {1, 4, 16} x w in {1, 1000, 1024,
            2^16}, lengths 2^22 + 3, 1 and 127, keys -1 and B, counters
@@ -24,9 +27,11 @@ raises (exit code 1) when it fails:
            on a (64, 1024, 4096) ring of counters >= 0xFFFFFFF0 with every
            slice live, a suffix, none live, W = 1, and a 35-counter plane
            (the scalar kernel); rwkv_intra at (G, C, N) = (5120, 64, 64)
-           (the serve prefill's grid), (7, 40, 64), (3, 1, 64) and
-           (16, 64, 32), and under strong decay (decay scale 50), within
-           rtol 1e-5 and atol 1e-4, every output finite.
+           (the serve prefill's grid), (7, 40, 64), (3, 1, 64),
+           (16, 64, 32), (5, 17, 64) and (3, 33, 30), and under strong
+           decay (decay scale 50) at (5120, 64, 64), (64, 64, 64) and
+           (2, 32, 32), within rtol 1e-5 and atol 1e-4, every output
+           finite.
   stream   the paper's NIC deployment (Tab. IV), lengthened: 2^26 uint32
            items in 16 chunks of 2^22 through ``update_registers`` under
            "cuda" and "cuda_pipelined" (k = 8), for (p, H) in
@@ -97,7 +102,8 @@ raises (exit code 1) when it fails:
            queued back to back) and host time per call, its bound (the
            larger of bytes over 3.35 TB/s and float32 operations over
            67 TFLOP/s), its plain version's time and, where one PyTorch
-           call computes the same function, that call's time.
+           call computes the same function, that call's time; beside them
+           sparse_scatter_coo on its global path.
   profile  torch.profiler over a few stream chunks, bank ticks, hybrid
            ticks, full-window reads, count-min ticks, their label votes
            alone, full-window reads of the count-min ring, full-width
@@ -143,6 +149,7 @@ from repro_torch.kernels.cm_scatter import (  # noqa: E402
 )
 from repro_torch.kernels.hash_rank import hash_rank, hash_rank_plain  # noqa: E402
 from repro_torch.kernels.hll_fused import hll_update_fused, hll_update_fused_plain  # noqa: E402
+from repro_torch.kernels import sparse_scatter as sparse_module  # noqa: E402
 from repro_torch.kernels.rwkv_intra import rwkv_intra, rwkv_intra_plain  # noqa: E402
 from repro_torch.kernels.sparse_scatter import sparse_scatter_coo, sparse_scatter_coo_plain  # noqa: E402
 from repro_torch.kernels.window_fold import (  # noqa: E402
@@ -217,8 +224,8 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
 CHECK_LAYERS = 2  # full-width layers of the teacher-forced and ragged legs
 TF_PROMPT, TF_STEPS = 128, 64  # prefill of 2 chunks, then 64 steps against forward of 3 chunks
 RAGGED_PROMPTS = (40, 100)  # one short chunk (C = 40), and the per-token scan
-INTRA_SHAPES = ((5120, 64, 64), (7, 40, 64), (3, 1, 64), (16, 64, 32))
-INTRA_STRONG = ((64, 64, 64), (2, 32, 32))  # decay scale 50
+INTRA_SHAPES = ((5120, 64, 64), (7, 40, 64), (3, 1, 64), (16, 64, 32), (5, 17, 64), (3, 33, 30))
+INTRA_STRONG = ((5120, 64, 64), (64, 64, 64), (2, 32, 32))  # decay scale 50
 INTRA_RTOL, INTRA_ATOL = 1e-5, 1e-4  # tests/test_rwkv_intra_kernel.py's tolerance
 # the kernel prefill against the plain one: within SERVE_NOISE_FACTOR x the
 # mean change that a relative N(0, SERVE_NOISE^2) error of the plain intra
@@ -314,10 +321,43 @@ def phase_build() -> dict:
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    print("[build] hll_fused: dynamic shared memory m bytes per block (65536 at p = 16); "
-          "rwkv_intra: (5 C (N + 1) + C^2 + N) * 4 bytes per block (99840 at C = N = 64); "
-          "the other kernels use none")
+    print("[build] dynamic shared memory per block: hll_fused m bytes (65536 at p = 16); "
+          "rwkv_intra 72960 bytes at C = N = 64; "
+          "sparse_scatter 4 * (2^14 + 2^10 + 2 slices + 1) a tile block (71748 at 264 slices), "
+          "4 * (tiles + 4 + triples a slice) a partition block (71520 on the bench_sparse stream); "
+          "the other kernels none")
     return seconds
+
+
+@contextlib.contextmanager
+def _setting(module, name: str, value):
+    """Set ``module.name`` to ``value`` for the ``with`` block."""
+    before = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, before)
+
+
+def _sparse_adversarial(n: int, rows: int, m: int, rng: np.random.Generator) -> dict:
+    """sparse_scatter_coo's hard streams, {name: (row, bucket, rank, rows, m)}:
+    every triple on one cell, one row at p = 16 (four tiles), only dropped
+    entries, rows * m not a multiple of 2^14 (m = 5000), ranks past 2^18."""
+    drop = rng.integers(0, 4, n)
+    return {
+        "one cell": (np.full(n, rows // 2, np.int32), np.full(n, m - 1, np.int32),
+                     rng.integers(1, 60, n).astype(np.int32), rows, m),
+        "one row p=16": (np.zeros(n, np.int32), rng.integers(0, 1 << 16, n).astype(np.int32),
+                         rng.integers(0, 60, n).astype(np.int32), 1, 1 << 16),
+        "all dropped": (np.where(drop == 0, -1, np.where(drop == 1, rows, 0)).astype(np.int32),
+                        np.where(drop == 2, m, np.where(drop == 3, -1, 0)).astype(np.int32),
+                        np.where(drop < 2, 5, 0).astype(np.int32), rows, m),
+        "ragged cells": (rng.integers(-1, 1001, n).astype(np.int32), rng.integers(0, 5000, n).astype(np.int32),
+                         rng.integers(0, 60, n).astype(np.int32), 1000, 5000),
+        "wide ranks": (rng.integers(0, rows, n).astype(np.int32), rng.integers(0, m, n).astype(np.int32),
+                       rng.integers(0, 2**31 - 1, n).astype(np.int32), rows, m),
+    }
 
 
 def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
@@ -409,6 +449,22 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
                 _max_abs_err(got[0], want[0], f"sparse_scatter_coo cells p={p} B={srows} n={length}"),
                 _max_abs_err(got[1], want[1], f"sparse_scatter_coo distinct p={p} B={srows} n={length}"),
             )
+    cases = _sparse_adversarial(n + 3, hybrid_rows, 1 << 12, rng)
+    row = rng.integers(-1, rows + 1, n + 3, dtype=np.int32)
+    cases["global path"] = (row, rng.integers(0, 1 << 12, n + 3, dtype=np.int32),
+                            rng.integers(0, 60, n + 3, dtype=np.int32), rows, 1 << 12)
+    for what, (row, bucket, rank, srows, m) in cases.items():
+        args = [torch.from_numpy(a).to(device) for a in (row, bucket, rank)]
+        # HIST_TILES = 0 sends every plan to the global path
+        with _setting(sparse_module, "HIST_TILES", 0) if what == "global path" else contextlib.nullcontext():
+            got = sparse_scatter_coo(*args, srows, m)
+        want = sparse_scatter_coo_plain(*args, srows, m)
+        errs["sparse_scatter_coo"] = max(
+            errs["sparse_scatter_coo"],
+            _max_abs_err(got[0], want[0], f"sparse_scatter_coo cells, {what}"),
+            _max_abs_err(got[1], want[1], f"sparse_scatter_coo distinct, {what}"),
+        )
+    del cases, args, got, want
     m = 1 << 12
     ring = torch.from_numpy(rng.integers(0, 40, (window, rows, m), dtype=np.uint8)).to(device)
     masks = {
@@ -1393,6 +1449,14 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
         }
     for name, row in out.items():
         print(f"[timing] {name}: {json.dumps(row)}")
+    # sparse_scatter_coo's global path at the same shape (zeroed cells,
+    # atomicMax and first-touch counts, one thread a triple, uncapped grid)
+    variants = {}
+    with _setting(sparse_module, "HIST_TILES", 0):
+        variants["sparse_scatter_coo global path"] = _time_ms(
+            lambda: sparse_scatter_coo(hrow, hidx, hrank, hybrid_rows, sm), [()])[0]
+    print(f"[timing] variants, device ms: {json.dumps(variants)}")
+    out["variants"] = variants
     return out
 
 

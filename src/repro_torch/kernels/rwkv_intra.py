@@ -9,16 +9,28 @@ chunk of one head of one sequence) of (C, N) tiles::
     y[t]    = sum_{s<t} A[t,s] v[s] + diag[t] v[t]
 
 the term ``models/rwkv6.py::time_mix_chunked`` adds to the inter-chunk
-term.  The CUDA source is ``csrc/rwkv_intra.cu``: one block per cell, the
-five tiles and u in dynamic shared memory (99,840 bytes at C = N = 64),
-threads over the (t, s) pairs forming A with the pairwise exp -- never
-exp(Lex) * exp(-L), which overflows under strong decay -- then threads
-over (t, n) forming y.  What bounds it on the H100 at the serve shape
-(G = 5120, C = N = 64): bytes, 504.6 MB read and written once, 0.151 ms at
-3.35 TB/s, against 0.061 ms for its ~4.1 GFLOP of float32 at 67 TFLOP/s.
-It takes 1 <= C <= 64 and 1 <= N <= 64 (the model's chunk is C = 64, or
-the whole prompt when it is shorter; N is the head width, 64 at full size
-and 32 in the reduced config).
+term.  The CUDA source is ``csrc/rwkv_intra.cu``: one block per cell,
+the five tiles and u copied into dynamic shared memory with ``cp.async``,
+and two-level chunking (GLA, arXiv:2312.06635, sec. 4).  The C rows split
+into sub-chunks of 8 rows; a diagonal sub-block keeps the
+pairwise exp(Lex[t] - L[s]), and an off-diagonal one (i > j) factors it
+through e, the last row of sub-chunk j, and b, the row before sub-chunk
+i::
+
+    exp(Lex[t] - L[s]) = exp(Lex[t] - L[b]) * exp(L[b] - L[e]) * exp(L[e] - L[s])
+
+so that it is a small dense product of r and k scaled once each.  Domain:
+log-decays <= 0 (rwkv6's ``log_w = -exp(.)``, every caller in the port),
+so L does not increase along the chunk, t > b >= e >= s makes every
+exponent <= 0, and no factor overflows even under strong decay; the
+pairwise exp is never factored across the whole chunk, where exp(-L)
+alone overflows.  What bounds it on the H100 at the serve shape
+(G = 5120, C = N = 64): bytes, 504.6 MB read and written once, 0.151 ms
+at 3.35 TB/s, against 0.061 ms for its ~4.1 GFLOP of float32 at
+67 TFLOP/s.  It takes 1 <= C <= 64 and 1 <= N <= 64 (the model's chunk is
+C = 64, or the whole prompt when it is shorter; N is the head width, 64
+at full size and 32 in the reduced config); a ragged last sub-chunk is
+masked.
 """
 
 from __future__ import annotations

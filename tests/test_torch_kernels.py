@@ -247,6 +247,48 @@ def test_sparse_scatter_coo_p16_matches_reference_jnp_scatter():
         sparse_scatter.sparse_scatter_coo(torch.zeros(2, dtype=torch.int64), *map(torch.from_numpy, (bucket[:2], rank[:2])), rows, m)
 
 
+@pytest.mark.parametrize("rows", [1, 3, 16384])
+@pytest.mark.parametrize("p", [4, 12, 15, 16])
+def test_sparse_scatter_tile_plan_covers_every_cell_once(p, rows):
+    m = 1 << p
+    plan = sparse_scatter.tile_plan(rows, m)
+    spans = [plan.cells(t) for t in range(plan.tiles)]
+    # tiles in order, back to back, from cell 0 to rows * m: every cell in exactly one
+    assert spans[0][0] == 0 and spans[-1][1] == rows * m
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(0 < hi - lo <= sparse_scatter.TILE_CELLS for lo, hi in spans)
+    # every tile but the last is full; the last holds what is left
+    full = spans[0][1] - spans[0][0]
+    assert all(hi - lo == full for lo, hi in spans[:-1])
+    assert spans[-1][1] - spans[-1][0] == rows * m - full * (plan.tiles - 1)
+    if m <= sparse_scatter.TILE_CELLS:
+        # whole rows: 1024 at p = 4, 4 at p = 12; a row never spans tiles
+        assert not plan.spans_rows and plan.rows_per_tile == min(sparse_scatter.TILE_CELLS // m, 1024)
+        assert all(lo % m == 0 and hi % m == 0 for lo, hi in spans)
+    else:
+        # a row spans m / 2^14 tiles: 2 at p = 15, 4 at p = 16
+        assert plan.spans_rows and plan.tiles_per_row == m // sparse_scatter.TILE_CELLS
+        assert plan.tiles == rows * plan.tiles_per_row
+    assert plan.global_path == (plan.tiles > sparse_scatter.HIST_TILES)
+
+
+def test_sparse_scatter_tile_plan_ragged_and_global_path():
+    # m not a power of two: a tile holds floor(2^14 / m) rows, the last tile fewer
+    plan = sparse_scatter.tile_plan(10, 5000)
+    assert plan.rows_per_tile == 3 and plan.tiles == 4 and plan.cells(3) == (45000, 50000)
+    # a row of 20000 cells spans 2 tiles, the second ragged
+    plan = sparse_scatter.tile_plan(3, 20000)
+    assert plan.tiles_per_row == 2 and plan.cells(1) == (16384, 20000) and plan.cells(2) == (20000, 36384)
+    # beyond a shared histogram's tiles: the global path
+    assert sparse_scatter.tile_plan(4097, 1 << 16).global_path
+    assert not sparse_scatter.tile_plan(4096, 1 << 16).global_path
+    # slices of the stream: two an SM at the bench's 3.64 M triples, one for a short stream
+    assert sparse_scatter.stream_split(16384 * 222, 132) == (13780, 264)
+    assert sparse_scatter.stream_split(127, 132) == (1024, 1)
+    per, slices = sparse_scatter.stream_split(1 << 30, 132)
+    assert per == sparse_scatter.MAX_SLICE and slices > sparse_scatter.MAX_SLICES  # the global path
+
+
 # ----------------------------------------------------------------------------
 # window_fold_max / window_merge_max
 # ----------------------------------------------------------------------------
@@ -413,6 +455,67 @@ def test_rwkv_intra_plain_blocks_of_cells_change_nothing(monkeypatch):
     torch.testing.assert_close(rwkv_intra.rwkv_intra_plain(*args), whole, rtol=0, atol=0)
 
 
+def _intra_two_level(r, k, v, lex, lcum, u, exponents, sub=8):
+    """A float32 emulation of the kernel's two-level chunking.
+
+    Sub-chunks of ``sub`` rows (the kernel's 8); a diagonal sub-block takes the pairwise
+    exp(Lex[t] - L[s]); an off-diagonal one (i > j) the three factors
+    through e = the last row of sub-chunk j and b = the row before
+    sub-chunk i.  Every exponent taken is appended to ``exponents`` as
+    (value, Lex side or not).
+    """
+    g, c, n = r.shape
+    a = torch.zeros((g, c, c), dtype=torch.float32)
+    for i in range(-(-c // sub)):
+        ti = slice(i * sub, min(c, (i + 1) * sub))
+        w = ti.stop - ti.start
+        lower = torch.tril(torch.ones((w, w), dtype=torch.bool), diagonal=-1)[None, :, :, None]
+        x = lex[:, ti, None, :] - lcum[:, None, ti, :]
+        exponents.append((x.expand(g, w, w, n)[lower.expand(g, w, w, n)], True))
+        pair = torch.where(lower, r[:, ti, None] * k[:, None, ti] * torch.exp(torch.where(lower, x, 0.0)), 0.0)
+        a[:, ti, ti] = pair.sum(-1) + torch.diag_embed(torch.einsum("gtn,gn,gtn->gt", r[:, ti], u, k[:, ti]))
+        for j in range(i):
+            tj = slice(j * sub, (j + 1) * sub)
+            b, e = sub * i - 1, sub * j + sub - 1
+            xr, xd, xk = lex[:, ti] - lcum[:, b, None], lcum[:, b] - lcum[:, e], lcum[:, e, None] - lcum[:, tj]
+            exponents += [(xr, True), (xd, False), (xk, False)]
+            rp, kp = r[:, ti] * torch.exp(xr), k[:, tj] * torch.exp(xk)
+            a[:, ti, tj] = torch.einsum("gtn,gn,gsn->gts", rp, torch.exp(xd), kp)
+    return torch.einsum("gts,gsn->gtn", a, v)
+
+
+@pytest.mark.parametrize("decay", [1.0, 50.0])
+@pytest.mark.parametrize("n", [64, 32])
+@pytest.mark.parametrize("c", [64, 40, 17, 1])
+def test_rwkv_intra_two_level_chunking_matches_plain_and_reference(c, n, decay):
+    np_args = _intra_inputs(3, c, n, seed=c + n, decay_scale=decay)
+    args = [torch.from_numpy(a) for a in np_args]
+    exponents = []
+    got = _intra_two_level(*args, exponents).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, rwkv_intra.rwkv_intra_plain(*args).numpy(), **INTRA_TOL)
+    np.testing.assert_allclose(got, np.asarray(ref_rwkv_intra.rwkv_intra_ref(*map(jnp.asarray, np_args))),
+                               **INTRA_TOL)
+    # L's float cumsum of negative log-decays never increases, so the
+    # exponents of L alone are <= 0 exactly; Lex = L - log_w is rounded
+    # once and may sit one ulp above L[t-1], so a Lex exponent may too
+    ulp = float(np.spacing(np.float32(np.abs(np_args[3]).max())))
+    for x, lex_side in exponents:
+        assert x.numel() == 0 or float(x.max()) <= (ulp if lex_side else 0.0)
+
+
+def test_rwkv_intra_two_level_exponents_nonpositive_on_exact_decays():
+    # with Lex the exact exclusive sum (L shifted one row) every exponent
+    # of the factored form is <= 0, even at decay scale 50
+    r, k, v, _, lcum, u = (torch.from_numpy(a) for a in _intra_inputs(4, 64, 64, seed=11, decay_scale=50.0))
+    lex = torch.cat([torch.zeros_like(lcum[:, :1]), lcum[:, :-1]], dim=1)
+    exponents = []
+    got = _intra_two_level(r, k, v, lex, lcum, u, exponents)
+    assert all(x.numel() == 0 or float(x.max()) <= 0.0 for x, _ in exponents)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, rwkv_intra.rwkv_intra_plain(r, k, v, lex, lcum, u), **INTRA_TOL)
+
+
 def test_rwkv_intra_validates_shapes_and_types():
     r, k, v, lex, lcum, u = (torch.from_numpy(a) for a in _intra_inputs(2, 8, 4))
     with pytest.raises(ValueError, match="like r"):
@@ -487,6 +590,51 @@ def test_sparse_scatter_coo_kernel_matches_plain_on_card():
             torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def _adversarial_triples(n, rows, m, seed):
+    """The tiled kernel's hard streams, {name: (row, bucket, rank, rows, m)}."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    # every triple on one cell
+    cases["one cell"] = (np.full(n, rows // 2, np.int32), np.full(n, m - 1, np.int32),
+                         rng.integers(1, 60, n).astype(np.int32), rows, m)
+    # one row at p = 16: four tiles of one row, counts added across them
+    cases["one row p=16"] = (np.zeros(n, np.int32), rng.integers(0, 1 << 16, n).astype(np.int32),
+                             rng.integers(0, 60, n).astype(np.int32), 1, 1 << 16)
+    # only dropped entries: rows -1 and B, buckets -1 and m, rank 0 and negative
+    drop = rng.integers(0, 4, n)
+    cases["all dropped"] = (np.where(drop == 0, -1, np.where(drop == 1, rows, 0)).astype(np.int32),
+                            np.where(drop == 2, m, np.where(drop == 3, -1, 0)).astype(np.int32),
+                            np.where(drop < 2, 5, 0).astype(np.int32), rows, m)
+    # rows * m not a multiple of 2^14, and m not a power of two
+    cases["ragged cells"] = (rng.integers(-1, 7, n).astype(np.int32), rng.integers(0, 5000, n).astype(np.int32),
+                             rng.integers(0, 60, n).astype(np.int32), 6, 5000)
+    # ranks past 2^18: the 64-bit packing
+    cases["wide ranks"] = (rng.integers(0, rows, n).astype(np.int32), rng.integers(0, m, n).astype(np.int32),
+                           rng.integers(0, 2**31 - 1, n).astype(np.int32), rows, m)
+    return cases
+
+
+@pytest.mark.gpu
+def test_sparse_scatter_coo_adversarial_streams_on_card(monkeypatch):
+    _need_card()
+    cases = _adversarial_triples((1 << 18) + 3, 4096, 1 << 12, 5)
+    for name, (row, bucket, rank, rows, m) in cases.items():
+        args = [torch.from_numpy(a).cuda() for a in (row, bucket, rank)]
+        assert not sparse_scatter.tile_plan(rows, m).global_path
+        got = sparse_scatter.sparse_scatter_coo(*args, rows, m)
+        want = sparse_scatter.sparse_scatter_coo_plain(*args, rows, m)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+    # the global path, at a size a shared histogram would take
+    monkeypatch.setattr(sparse_scatter, "HIST_TILES", 8)
+    row, bucket, rank = _triples(100_003, 64, 1 << 12, 9)
+    args = [torch.from_numpy(a).cuda() for a in (row, bucket, rank)]
+    assert sparse_scatter.tile_plan(64, 1 << 12).global_path
+    for g, w in zip(sparse_scatter.sparse_scatter_coo(*args, 64, 1 << 12),
+                    sparse_scatter.sparse_scatter_coo_plain(*args, 64, 1 << 12)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 def test_window_fold_max_kernel_matches_plain_on_card():
     _need_card()
@@ -538,8 +686,9 @@ def test_cm_window_fold_sum_kernel_matches_plain_on_card():
 @pytest.mark.gpu
 def test_rwkv_intra_kernel_matches_plain_on_card():
     _need_card()
-    cases = [((g, c, n), 1.0) for g, c, n in ((5120, 64, 64), (7, 40, 64), (3, 1, 64), (16, 64, 32), (1, 8, 16))]
-    cases += [((64, 64, 64), 50.0), ((2, 32, 32), 50.0)]
+    cases = [((g, c, n), 1.0) for g, c, n in ((5120, 64, 64), (7, 40, 64), (3, 1, 64), (16, 64, 32), (1, 8, 16),
+                                              (5, 17, 64), (3, 33, 30))]
+    cases += [((64, 64, 64), 50.0), ((2, 32, 32), 50.0), ((5120, 64, 64), 50.0), ((2, 17, 7), 50.0)]
     for (g, c, n), decay in cases:
         args = [torch.from_numpy(a).cuda() for a in _intra_inputs(g, c, n, seed=c * n, decay_scale=decay)]
         before = rwkv_intra.rwkv_intra.launches
