@@ -2,9 +2,15 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py [--src DIR] [--time KERNEL,..] [--profile STEP,..]
 
 Run from a checkout of the repo on a machine with a CUDA card and the CUDA
-toolkit; it needs no arguments and no network.  Phases, each of which
+toolkit; it needs no arguments and no network.  With ``--time`` or
+``--profile`` it runs only the timing of those kernels and the profile of
+those steps, and prints no result line; ``--src DIR`` imports the port from
+DIR (another tree's ``src/``, such as a parent commit's) instead of this
+checkout's, so that two trees are measured by the same code: run parent,
+change, change, parent in one call to compare them.  Phases, each of which
 raises (exit code 1) when it fails:
 
   build    compile the ten kernels (eight sources) from
@@ -23,7 +29,13 @@ raises (exit code 1) when it fails:
            slice live, a suffix, none live, and W = 1; window_merge_max at
            K = 3; cm_scatter_add at d in {1, 4, 16} x w in {1, 1000, 1024,
            2^16}, lengths 2^22 + 3, 1 and 127, keys -1 and B, counters
-           preset at 0xFFFFFFF0 so that the adds wrap; cm_window_fold_sum
+           preset at 0xFFFFFFF0 so that the adds wrap, and on adversarial
+           streams (every item on one key and one item, only dropped keys,
+           B = 1, 1023 rows, w = 1000, 2^25 + 5 items in 2048 slices, the
+           global path at the main config), printing the path each case
+           took; hll_update_fused also on identical items, items off a
+           16-byte boundary, n = 1 and 127, at p in {4, 16}, both widths,
+           seed 2^64 - 1, onto zero and preset registers; cm_window_fold_sum
            on a (64, 1024, 4096) ring of counters >= 0xFFFFFFF0 with every
            slice live, a suffix, none live, W = 1, and a 35-counter plane
            (the scalar kernel); rwkv_intra at (G, C, N) = (5120, 64, 64)
@@ -102,20 +114,25 @@ raises (exit code 1) when it fails:
            queued back to back) and host time per call, its bound (the
            larger of bytes over 3.35 TB/s and float32 operations over
            67 TFLOP/s), its plain version's time and, where one PyTorch
-           call computes the same function, that call's time; beside them
-           sparse_scatter_coo on its global path.
+           call computes the same function, that call's time;
+           cm_scatter_add and hll_update_fused in 5 rounds (min, median,
+           max; the record takes the first, as every row); beside them
+           sparse_scatter_coo and cm_scatter_add on their global paths
+           (the previous designs).
   profile  torch.profiler over a few stream chunks, bank ticks, hybrid
            ticks, full-window reads, count-min ticks, their label votes
-           alone, full-window reads of the count-min ring, full-width
-           RWKV6-3B prefills and decode steps: wall and device-busy time
-           per step, idle share, top device entries.
+           alone and their cm_scatter_add alone, full-window reads of the
+           count-min ring, full-width RWKV6-3B prefills and decode steps,
+           after a warm-up step: wall and device-busy time per step, idle
+           share, top device entries.
 
 The launch counters are zeroed just before the stream, bank, hybrid,
 window, countmin, cm_window and board phases (the sketch paths) and read
 just after; the nine sketch kernels must have launched there.  They are
 zeroed again just before the serve phase and read just after; rwkv_intra
 must have launched there, once per layer of every prefill whose prompt a
-chunk divides.
+chunk divides.  After the kernels phase it checks that the count-min main
+path's shapes take the tiled cm_scatter_add.
 Before the last line it prints the kernels' JSON record and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -124,6 +141,7 @@ With no card it raises before printing any result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -136,7 +154,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+
+def _port_src() -> Path:
+    """Where the port is imported from: this checkout's ``src/``, or DIR
+    after ``--src DIR``."""
+    args = sys.argv[1:]
+    if "--src" in args[:-1]:
+        return Path(args[args.index("--src") + 1]).resolve()
+    return Path(__file__).resolve().parent / "src"
+
+
+sys.path.insert(0, str(_port_src()))
 
 from repro_torch.kernels import _build, launch_counts, reset_launches  # noqa: E402
 from repro_torch.kernels.bank_scatter import bank_scatter_max, bank_scatter_max_plain  # noqa: E402
@@ -150,6 +179,8 @@ from repro_torch.kernels.cm_scatter import (  # noqa: E402
 from repro_torch.kernels.hash_rank import hash_rank, hash_rank_plain  # noqa: E402
 from repro_torch.kernels.hll_fused import hll_update_fused, hll_update_fused_plain  # noqa: E402
 from repro_torch.kernels import sparse_scatter as sparse_module  # noqa: E402
+from repro_torch.kernels import cm_scatter as cm_module  # noqa: E402
+from repro_torch.kernels import hll_fused as hll_module  # noqa: E402
 from repro_torch.kernels.rwkv_intra import rwkv_intra, rwkv_intra_plain  # noqa: E402
 from repro_torch.kernels.sparse_scatter import sparse_scatter_coo, sparse_scatter_coo_plain  # noqa: E402
 from repro_torch.kernels.window_fold import (  # noqa: E402
@@ -247,6 +278,9 @@ KERNEL_SOURCES = {
     "cm_window_fold_sum": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:186"),
     "rwkv_intra": ("src/repro_torch/kernels/csrc/rwkv_intra.cu", "src/repro/kernels/rwkv_intra.py:54"),
 }
+SPREAD_KERNELS = ("cm_scatter_add", "hll_update_fused")  # timed in rounds, min/median/max printed
+SPREAD_ROUNDS = 5
+PROFILE_ATTEMPTS = 3  # recordings of a profile step before its partial one is reported
 SERVE_KERNELS = ("rwkv_intra",)  # launched on the serve phase; the others on the sketch phases
 
 
@@ -321,7 +355,9 @@ def phase_build() -> dict:
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    print("[build] dynamic shared memory per block: hll_fused m bytes (65536 at p = 16); "
+    print("[build] dynamic shared memory per block: hll_fused's file pass m bytes (65536 at p = 16); "
+          "cm_scatter 4 * (counters of a tile + 2 slices + 1) a tile block (67,652 at the main shape), "
+          "4 * (tiles + 4 + items a slice) a partition block (64,592 at the main shape); "
           "rwkv_intra 72960 bytes at C = N = 64; "
           "sparse_scatter 4 * (2^14 + 2^10 + 2 slices + 1) a tile block (71748 at 264 slices), "
           "4 * (tiles + 4 + triples a slice) a partition block (71520 on the bench_sparse stream); "
@@ -357,6 +393,36 @@ def _sparse_adversarial(n: int, rows: int, m: int, rng: np.random.Generator) -> 
                          rng.integers(0, 60, n).astype(np.int32), 1000, 5000),
         "wide ranks": (rng.integers(0, rows, n).astype(np.int32), rng.integers(0, m, n).astype(np.int32),
                        rng.integers(0, 2**31 - 1, n).astype(np.int32), rows, m),
+    }
+
+
+def _sms(device) -> int:
+    """The card's SMs, the launch plans' input (132 on an H100 SXM; the CPU
+    rehearsal, which runs the plain versions, plans as for that card)."""
+    return _build.sm_count(torch.device(device)) if torch.device(device).type == "cuda" else 132
+
+
+def _cm_path(rows: int, cfg: CMConfig, n: int, device) -> str:
+    """The path cm_scatter_add takes at this shape: "tiled" or "global"."""
+    return cm_module.cm_scatter_path(rows, cfg, n, _sms(device))
+
+
+def _cm_adversarial(n: int, rows: int, rng: np.random.Generator) -> dict:
+    """cm_scatter_add's hard streams, {name: (keys, items, rows, cfg)}: every
+    item on one key and one item (one counter a depth row takes all n adds,
+    across the units of its split tile), only dropped keys, B = 1, B - 1
+    rows (1023: the last tile holds 3 of 4), w = 1000 (64-bit items, hashed
+    again), a row past a tile (the global path)."""
+    keys = rng.integers(-1, rows + 1, n, dtype=np.int32)
+    items = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+    cfg = CMConfig(CM_DEPTH, CM_WIDTH, seed=2**64 - 1)
+    return {
+        "one key one item": (np.full(n, rows // 2, np.int32), np.full(n, 99, np.int32), rows, cfg),
+        "only dropped keys": (np.where(keys % 2 == 0, -1, rows).astype(np.int32), items, rows, cfg),
+        "one row": (np.where(keys % 5 == 0, 1, 0).astype(np.int32), items, 1, cfg),
+        "ragged tiles": (keys, items, rows - 1, cfg),
+        "w=1000": (np.clip(keys, -1, 100).astype(np.int32), items, min(rows, 100), CMConfig(3, 1000, seed=5)),
+        "global path": (keys, items, rows, CMConfig(1, 1 << 16)),
     }
 
 
@@ -405,6 +471,25 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
                             f"hll_update_fused {cfg} n={length} n_valid={n_valid}",
                         ),
                     )
+    # every item identical (one hot register), and items off a 16-byte
+    # boundary, at p in {4, 16}, both widths, seed 2^64 - 1, onto preset registers
+    files = {}
+    same = torch.full((n + 3,), 0x5EED, dtype=torch.int32, device=device)
+    for p, hash_bits in ((4, 32), (4, 64), (16, 32), (16, 64)):
+        cfg = HLLConfig(p=p, hash_bits=hash_bits, seed=2**64 - 1)
+        regs = torch.from_numpy(rng.integers(0, cfg.max_rank + 1, cfg.m, dtype=np.uint8)).to(device)
+        x = _items_tensor(_stream_items(n + 7, rng), device)
+        cases = {"identical items": same, "offset 1": x[1:], "offset 3": x[3:], "n=1": x[:1], "n=127": x[:127]}
+        for what, items in cases.items():
+            files[f"{cfg.p}/{cfg.hash_bits} {what}"] = hll_module.hll_partials(items.numel(), p, _sms(device))
+            for r in (torch.zeros_like(regs), regs):
+                errs["hll_update_fused"] = max(
+                    errs["hll_update_fused"],
+                    _max_abs_err(hll_update_fused(r, items, None, cfg), hll_update_fused_plain(r, items, None, cfg),
+                                 f"hll_update_fused {cfg} {what}"),
+                )
+    print(f"[kernels] hll_update_fused register files per case: {json.dumps(files)}")
+    del same, x, cases
     for k, m, dtype in ((PIPELINES, 1 << 16, torch.uint8), (PIPELINES, 1 << 14, torch.uint8),
                         (3, 20, torch.uint8), (1, 16, torch.uint8), (5, 1001, torch.int32)):
         hi = 62 if dtype == torch.uint8 else 2**31 - 1
@@ -490,6 +575,7 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
         window_merge_max(parts), window_merge_max_plain(parts), "window_merge_max K=3"
     )
     del ring, one, parts
+    paths = {}
     for depth in (1, 4, 16):
         for width in (1, 1000, 1024, 1 << 16):
             cfg = CMConfig(depth, width, seed=2**64 - 1 if width == 1000 else 0)
@@ -501,12 +587,35 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
                 keys[: min(length, 2)] = [-1, cm_rows][: min(length, 2)]
                 k_t = torch.from_numpy(keys).to(device)
                 x = _items_tensor(_stream_items(length, rng), device)
+                paths[f"d={depth} w={width} B={cm_rows} n={length}"] = _cm_path(cm_rows, cfg, length, device)
                 errs["cm_scatter_add"] = max(
                     errs["cm_scatter_add"],
                     _max_abs_err(cm_scatter_add(counters, k_t, x, cfg), cm_scatter_add_plain(counters, k_t, x, cfg),
                                  f"cm_scatter_add {cfg} B={cm_rows} n={length}"),
                 )
             del counters
+    cases = {what: (*case, n + 3) for what, case in _cm_adversarial(n + 3, rows, rng).items()}
+    cfg = CMConfig(CM_DEPTH, CM_WIDTH)
+    many = 8 * n + 5  # 2^25 + 5 items: 2048 slices
+    keys = rng.integers(-1, rows + 1, many, dtype=np.int32)
+    cases[f"many slices, n={many}"] = (keys, keys * 7919, rows, cfg, many)
+    cases["global path, main config"] = (keys[: n + 3], keys[: n + 3] * 7919, rows, cfg, n + 3)
+    for what, (keys, items, cm_rows, cfg, length) in cases.items():
+        counters = torch.full((cm_rows, cfg.depth, cfg.width), -16, dtype=torch.int32, device=device)
+        k_t, x = torch.from_numpy(keys).to(device), torch.from_numpy(items).to(device)
+        if what == "global path, main config":
+            paths[what] = "global"
+            got = cm_module.cm_scatter_add_global(counters, k_t, x, cfg)
+        else:
+            paths[what] = _cm_path(cm_rows, cfg, length, device)
+            got = cm_scatter_add(counters, k_t, x, cfg)
+        errs["cm_scatter_add"] = max(
+            errs["cm_scatter_add"],
+            _max_abs_err(got, cm_scatter_add_plain(counters, k_t, x, cfg), f"cm_scatter_add, {what}"),
+        )
+        del counters, got
+    print(f"[kernels] cm_scatter_add paths: {json.dumps(paths)}")
+    del cases, keys
     gen = torch.Generator(device=device).manual_seed(SEED)
     # counters in [0xFFFFFFF0, 0xFFFFFFFF]: every sum of two or more wraps
     cm_ring = torch.randint(-16, 0, (window, rows, CM_DEPTH * CM_WIDTH), generator=gen, dtype=torch.int32,
@@ -1317,8 +1426,9 @@ def intra_flops(g: int, c: int, n: int) -> int:
 
 
 def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: int = HYBRID_ROWS,
-                 window: int = WINDOW, intra_shape=INTRA_SHAPES[0]) -> dict:
-    """Kernel, plain and library times at the main path's shapes."""
+                 window: int = WINDOW, intra_shape=INTRA_SHAPES[0], only=None) -> dict:
+    """Kernel, plain and library times at the main path's shapes; ``only``
+    (kernel names) times those alone, without the variants."""
     rng = np.random.default_rng(SEED + 2)
     cfg = HLLConfig(p=16, hash_bits=64)
     m = cfg.m
@@ -1435,8 +1545,17 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
     # the sketch kernels' integer work has none, so bytes bound them
     flops = {"rwkv_intra": intra_flops(ig, ic, inn)}
     out = {}
+    if only is not None:
+        calls = {name: calls[name] for name in only}
     for name, (kernel, plain, library, nbytes) in calls.items():
         ms, host_ms = _time_ms(*kernel)
+        spread = None
+        if name in SPREAD_KERNELS:
+            # more rounds beside the first, which every row records as ms:
+            # these two move from run to run
+            rounds = [ms] + [_time_ms(*kernel)[0] for _ in range(SPREAD_ROUNDS - 1)]
+            spread = {"min": min(rounds), "median": statistics.median(rounds), "max": max(rounds),
+                      "rounds": rounds}
         plain_ms, plain_host_ms = _time_ms(*plain, iters=3)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops.get(name, 0) / F32_FLOPS_PER_S * 1e3
@@ -1447,14 +1566,23 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
             "library_ms": _time_ms(*library, iters=10)[0] if library else None,
             "host_ms": host_ms, "plain_host_ms": plain_host_ms,
         }
+        if spread:
+            out[name]["spread_ms"] = spread
     for name, row in out.items():
         print(f"[timing] {name}: {json.dumps(row)}")
+    if only is not None:
+        return out
     # sparse_scatter_coo's global path at the same shape (zeroed cells,
     # atomicMax and first-touch counts, one thread a triple, uncapped grid)
     variants = {}
     with _setting(sparse_module, "HIST_TILES", 0):
         variants["sparse_scatter_coo global path"] = _time_ms(
             lambda: sparse_scatter_coo(hrow, hidx, hrank, hybrid_rows, sm), [()])[0]
+    # cm_scatter_add's global path at the main shape: one atomicAdd a hit
+    # into a copy of the bank (the previous design)
+    print(f"[timing] cm_scatter_add path at the main shape: {_cm_path(rows, cmc, n, device)}")
+    variants["cm_scatter_add global path"] = _time_ms(
+        lambda k, x: cm_module.cm_scatter_add_global(cm_bank, k, x, cmc), cm_streams)[0]
     print(f"[timing] variants, device ms: {json.dumps(variants)}")
     out["variants"] = variants
     return out
@@ -1464,15 +1592,18 @@ def _device_entries(averages) -> list:
     """The card's own entries of a profiler's ``key_averages()``: kernels,
     copies and fills.  An aten op reports the device time of the kernels it
     launched as its own self time too, so a sum over every entry counts each
-    such kernel twice (and gave idle shares below 0)."""
+    such kernel twice (and gave idle shares below 0); so does the step
+    annotation of a profiler schedule (``ProfilerStep*``) on the card's
+    timeline."""
     from torch.autograd import DeviceType
 
-    return [e for e in averages if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return [e for e in averages if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
 
 
 def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROWS,
                   hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, requests: int = SERVE_REQUESTS,
-                  prompt_len: int = SERVE_PROMPT) -> dict:
+                  prompt_len: int = SERVE_PROMPT, only=None) -> dict:
     """Where the main path's time goes: torch.profiler over a few steps.
 
     One step is one ``HyperLogLog.update`` of an n-item chunk under "cuda"
@@ -1483,17 +1614,21 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     (``estimate_window()`` of a fresh instance of the W = 64 ring: the
     three-fragment merge and the estimator), one count-min tick
     (``CountMinBank.update_many`` of n Zipf-keyed items into the (1024, 4,
-    1024) bank), its Topkapi label vote alone, one full-window
+    1024) bank), its Topkapi label vote alone, its ``cm_scatter_add`` alone
+    (the tiled kernel's passes), one full-window
     ``fold_window()`` of the 3 GiB (64, 1024, 4, 1024) count-min ring, one
     full-width RWKV6-3B ``engine.prefill`` of 8 x 1024 tokens, or one
-    ``engine.decode_step`` of the 8 requests after it.
+    ``engine.decode_step`` of the 8 requests after it; ``only`` (step
+    names) profiles those alone.
     Prints the wall time per step (without the profiler), the
     card's busy time per step (the sum of its kernel and copy times, from
-    the profiler) and the idle share, and the top device entries by self
-    time.  Informational: an empty device trace
-    is reported, not raised.
+    the profiler, which records ``steps`` steps after one warm-up step: the
+    first step of a session lost some of its kernels; a recording whose
+    counts are not whole steps is made again, up to PROFILE_ATTEMPTS times)
+    and the idle share, and the top device entries by self time.  Informational: an empty device
+    trace is reported, not raised.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     rng = np.random.default_rng(SEED + 3)
     cfg = HLLConfig(p=16, hash_bits=64)
@@ -1509,19 +1644,26 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     hkeys, hitems = _zipf_traffic(hybrid_rows, HYBRID_ITEMS_PER_ROW * hybrid_rows, rng)
     hk = torch.from_numpy(hkeys).to(device).tensor_split(HYBRID_CHUNKS)
     hx = torch.from_numpy(hitems).to(device).tensor_split(HYBRID_CHUNKS)
+
+    def wanted(step: str) -> bool:
+        return only is None or step in only
+
+    # the states that take long to fill are filled only where profiled (the
+    # data of the others does not change)
     hyb = HybridBank.empty(hybrid_rows, hcfg, device=device)
-    for k, x in zip(hk[:-1], hx[:-1]):
+    for k, x in zip(hk[:-1], hx[:-1]) if wanted("hybrid") else ():
         hyb = hyb.update_many(k, x, plan).compact()
     ring = WindowedBank.empty(window, rows, hcfg, device)
-    for epoch in range(window + 1):
-        ring = ring.observe(*_zipf_epoch(rows, WINDOW_EPOCH_ITEMS, rng, device), plan).advance()
-    ring.estimate_window(plan=plan)  # builds the decomposition the reads thread
+    if wanted("window_read"):
+        for epoch in range(window + 1):
+            ring = ring.observe(*_zipf_epoch(rows, WINDOW_EPOCH_ITEMS, rng, device), plan).advance()
+        ring.estimate_window(plan=plan)  # builds the decomposition the reads thread
     cmc = CMConfig(CM_DEPTH, CM_WIDTH, seed=0)
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     ck, cx = _cm_traffic(rows, n, CM_ITEM_IDS, gen)
     cm_bank = CountMinBank.empty(rows, cmc, device).update_many(ck, cx, plan)
     cm_ring = WindowedCountMinBank.empty(window, rows, cmc, device)
-    for epoch in range(window + 1):
+    for epoch in range(window + 1) if wanted("cm_window_read") else ():
         k, x = _cm_traffic(rows, WINDOW_EPOCH_ITEMS, CM_ITEM_IDS, gen)
         cm_ring = cm_ring.observe(k, x, plan).advance()
     steps_fn = {
@@ -1534,20 +1676,24 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
         # one count-min tick (counters + the Topkapi vote), and the vote alone
         "cm_tick": lambda: cm_bank.update_many(ck, cx, plan),
         "cm_label_vote": lambda: _label_update(cm_bank.labels, cm_bank.label_counts, ck, cx, cmc),
+        "cm_scatter_add": lambda: cm_scatter_add(cm_bank.counters, ck, cx, cmc),
         # a full-window read of the 3 GiB ring: the counter fold kernel and
         # the W - 1 pairwise label merges
         "cm_window_read": lambda: cm_ring.fold_window(plan=plan),
     }
     # the serve path at full width
-    arch = get_arch(SERVE_ARCH)
-    sgen = torch.Generator(device=device).manual_seed(SEED + 11)
-    model = transformer.init_params(arch, sgen, device)
-    batch = {"tokens": torch.randint(0, arch.vocab_size, (requests, prompt_len), generator=sgen, device=device,
-                                     dtype=torch.int32)}
-    _, cache = engine.prefill(model, batch, arch, prompt_len + 2)
-    last = batch["tokens"][:, -1]
-    steps_fn["serve_prefill"] = lambda: engine.prefill(model, batch, arch, prompt_len + 2)
-    steps_fn["serve_decode"] = lambda: engine.decode_step(model, cache, last, prompt_len, arch)
+    if only is None or {"serve_prefill", "serve_decode"} & set(only):
+        arch = get_arch(SERVE_ARCH)
+        sgen = torch.Generator(device=device).manual_seed(SEED + 11)
+        model = transformer.init_params(arch, sgen, device)
+        batch = {"tokens": torch.randint(0, arch.vocab_size, (requests, prompt_len), generator=sgen,
+                                         device=device, dtype=torch.int32)}
+        _, cache = engine.prefill(model, batch, arch, prompt_len + 2)
+        last = batch["tokens"][:, -1]
+        steps_fn["serve_prefill"] = lambda: engine.prefill(model, batch, arch, prompt_len + 2)
+        steps_fn["serve_decode"] = lambda: engine.decode_step(model, cache, last, prompt_len, arch)
+    if only is not None:
+        steps_fn = {name: steps_fn[name] for name in only}
     result = {}
     for name, step in steps_fn.items():
         # wall time without the profiler, whose own host cost would add idle
@@ -1557,14 +1703,29 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-        rows_ = _device_entries(prof.key_averages())
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            # one warm-up step, then `steps` recorded; the card finishes the
+            # warm-up step before the recording starts (the profiler records
+            # by the card's clock, so a device-bound step's queued kernels
+            # would count) and the recorded ones before it stops
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+                for i in range(steps + 1):
+                    step()
+                    if i in (0, steps):
+                        torch.cuda.synchronize()
+                    prof.step()
+            rows_ = _device_entries(prof.key_averages())
+            # every step launches the same kernels, so a count that is not a
+            # whole number of steps means the profiler lost records (seen
+            # now and then on the card, in the full phase only): record again
+            whole = all(e.count % steps == 0 for e in rows_)
+            if whole:
+                break
         busy_ms = sum(e.self_device_time_total for e in rows_) / 1e3 / steps
         result[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                        "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None}
+                        "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+                        "recordings": attempt, "whole_steps": whole}
         intra = [e for e in rows_ if "rwkv_intra" in e.key]
         if intra:
             result[name]["rwkv_intra_ms"] = sum(e.self_device_time_total for e in intra) / 1e3 / steps
@@ -1582,18 +1743,36 @@ def nvidia_smi() -> str:
     ).stdout.strip()
 
 
-def _timed(phase, *args):
+def _timed(phase, *args, **kwargs):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
-    out = phase(*args)
+    out = phase(*args, **kwargs)
     print(f"[wall] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
     return out
 
 
+def _names(text: str) -> list:
+    return [name for name in text.split(",") if name]
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Drive the port's main paths on one NVIDIA card.")
+    parser.add_argument("--src", help="import the port from this src/ directory")
+    parser.add_argument("--time", type=_names, help="time these kernels alone (names, comma-separated)")
+    parser.add_argument("--profile", type=_names, help="profile these steps alone (names, comma-separated)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
     device = torch.device("cuda")
+    if args.time is not None or args.profile is not None:
+        import repro_torch
+
+        print(f"[env] {nvidia_smi()}, torch {torch.__version__}, port from {Path(repro_torch.__file__).parent}")
+        if args.time:
+            _timed(phase_timing, device, only=args.time)
+        if args.profile:
+            _timed(phase_profile, device, only=args.profile)
+        return 0
     # float32 products in full float32 (PyTorch's default, stated): the
     # plain intra form and the inter-chunk einsums
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1601,6 +1780,16 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     _timed(phase_build)
     errs = _timed(phase_kernels, device)
+    # the main paths' shapes take the redesigned kernels: the tiled count-min
+    # path (a tick, a ring epoch) and one register file an SM
+    cmc = CMConfig(CM_DEPTH, CM_WIDTH)
+    paths = {"countmin tick": _cm_path(CM_ROWS, cmc, CM_TICK_ITEMS, device),
+             "cm_window epoch": _cm_path(CM_ROWS, cmc, WINDOW_EPOCH_ITEMS, device)}
+    files = {"stream chunk": hll_module.hll_partials(STREAM_CHUNK_ITEMS, 16, _sms(device)),
+             "pipelined chunk": hll_module.hll_partials(STREAM_CHUNK_ITEMS // PIPELINES, 16, _sms(device))}
+    print(f"[main path] cm_scatter_add paths {paths}; hll_update_fused register files at p = 16 {files}")
+    if set(paths.values()) != {"tiled"}:
+        raise AssertionError(f"the count-min main path does not take the tiled cm_scatter_add: {paths}")
 
     reset_launches()
     stream = _timed(phase_stream, device)

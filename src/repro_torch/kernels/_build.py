@@ -17,6 +17,7 @@ memory, spills per kernel) is kept beside each library (``build_log``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -143,6 +144,12 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
     if device.type != "cuda":
         raise ValueError(f"a CUDA kernel needs CUDA tensors, got {device}")
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of ``device`` (a launch plan's input)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream(device: torch.device) -> int:

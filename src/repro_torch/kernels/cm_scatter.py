@@ -15,30 +15,54 @@ The TPU kernel takes a d-expanded (key, cell, hit) stream tiled to
 (rows, 128) and sums it with a one-hot compare-reduce into row blocks of at
 most 4096 cells (``MAX_BLOCK_CELLS``), because the TPU has no
 read-modify-write port.  Here ``cm_scatter_add`` takes the raw (key, item)
-stream: one thread per item hashes it (murmur3_64, the same h1 as the HLL
-kernels), picks its d Kirsch-Mitzenmacher columns and lands d ``atomicAdd``
-hits into a copy of the whole (B, d, w) bank.  What bounds it on the H100:
-memory, 8 B of stream per item plus the bank copied once (read and
-written), at 3.35 TB/s.  ``cm_window_fold_sum`` is ``window_fold``'s
-structure with + for max: 16 bytes of the (B * d * w) plane per thread,
-the (W,) mask read on the card, dead slices skipped unread; bound: the
-live slices read once and the plane written once.
+stream and keeps the hot counters on chip, as ``sparse_scatter`` keeps its
+cells: ``cm_tile_plan`` cuts the bank into tiles of whole (d, w) rows (a
+power of two of them, at most 2^14 counters, 64 KB of shared memory); a
+block per slice of the stream (``stream_split``) sorts its items by tile;
+a block per work unit loads its tile's counters, lands its items' d hits
+(murmur3_64, the same h1 as the HLL kernels, Kirsch-Mitzenmacher columns)
+with shared atomics and writes the whole tile, so the bank copy folds into
+the pass.  A tile with more items than ``UNIT_ITEMS`` is split into units
+over groups of slices (ceil(items / UNIT_ITEMS), at most one a slice); its
+extra units add their partials with global atomics after the first unit
+has written the tile.  The plan's limits live here, and the launcher checks
+only that a plan is consistent.  A row larger than a tile, or a plan or
+stream past those limits, takes the global path (``cm_scatter_path``,
+``cm_scatter_add_global``), the previous design: one thread per item, d
+global ``atomicAdd`` hits into a copy of the bank.  What bounds it
+on the H100: memory, 8 B of stream per item plus the bank read and written
+once, at 3.35 TB/s.  ``cm_window_fold_sum`` is
+``window_fold``'s structure with + for max: 16 bytes of the (B * d * w)
+plane per thread, the (W,) mask read on the card, dead slices skipped
+unread; bound: the live slices read once and the plane written once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.sparse_scatter import MAX_SLICES, stream_split
 from repro_torch.sketch.countmin import CMConfig, cm_hash_index
 
 COUNTER_DTYPE = torch.int32  # the uint32 counters' bits
 
+TILE_CELLS = 1 << 14  # counters a tile holds in shared memory (64 KB)
+HIST_TILES = 1 << 14  # tiles a shared histogram holds; more take the global path
+UNIT_ITEMS = 1 << 13  # items a work unit takes; a tile with more is split
+MAX_OFFSETS = 1 << 24  # entries of the (slices, tiles + 1) offsets scratch; more take the global path
+
 _SCATTER_ARGTYPES = (
     [ctypes.c_void_p] * 3
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p]
+)
+_TILED_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_ulonglong]
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
 )
 _FOLD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
@@ -53,6 +77,51 @@ def _check_cell_space(rows: int, cfg: CMConfig) -> None:
             f"cm cell space B*d*w = {rows}*{cfg.depth}*{cfg.width} overflows int32 "
             f"segment ids; split the fleet across multiple banks or shards"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class CMTilePlan:
+    """How the tiled kernel cuts a (B, d, w) bank: tiles of ``rows_per_tile``
+    whole rows of ``cells = d * w`` counters (the last tile fewer), a power
+    of two, so that a key's tile is a shift.
+    ``log2_width``: log2(w) where w is a power of two (items pack into 32
+    bits), else -1.  ``global_path``: a row larger than a tile, or more
+    tiles than a shared histogram holds.
+    """
+
+    rows: int
+    cells: int
+    rows_per_tile: int
+    tiles: int
+    log2_width: int
+    global_path: bool
+
+    def rows_of(self, tile: int) -> Tuple[int, int]:
+        """The row range [lo, hi) of ``tile``."""
+        lo = tile * self.rows_per_tile
+        return lo, min(self.rows, lo + self.rows_per_tile)
+
+
+def cm_tile_plan(rows: int, cfg: CMConfig) -> CMTilePlan:
+    """The tile plan of a ``rows`` x ``cfg`` bank."""
+    cells = cfg.cells
+    width = cfg.width
+    log2_width = width.bit_length() - 1 if width & (width - 1) == 0 else -1
+    if cells > TILE_CELLS:
+        return CMTilePlan(rows, cells, 0, 0, log2_width, True)
+    per = 1 << ((TILE_CELLS // cells).bit_length() - 1)
+    tiles = -(-rows // per)
+    return CMTilePlan(rows, cells, per, tiles, log2_width, tiles > HIST_TILES)
+
+
+def cm_scatter_path(rows: int, cfg: CMConfig, n: int, sms: int) -> str:
+    """"tiled" or "global": the path ``cm_scatter_add`` takes for ``n`` items
+    into a ``rows`` x ``cfg`` bank on a card of ``sms`` SMs."""
+    plan = cm_tile_plan(rows, cfg)
+    _, slices = stream_split(n, sms)
+    if plan.global_path or slices > MAX_SLICES or slices * (plan.tiles + 1) > MAX_OFFSETS:
+        return "global"
+    return "tiled"
 
 
 def _check_scatter(counters, keys, items, cfg: CMConfig):
@@ -107,15 +176,55 @@ def cm_scatter_add(
         return cm_scatter_add_plain(counters, keys, items, cfg)
     keys, items = _check_scatter(counters, keys, items, cfg)
     device = _build.require_cuda(counters, keys, items)
-    out = counters.clone(memory_format=torch.contiguous_format)
-    if keys.numel() == 0:
+    counters = counters.contiguous()
+    rows, n = counters.shape[0], keys.numel()
+    if n == 0 or rows == 0:
+        return counters.clone()
+    sms = _build.sm_count(device)
+    if cm_scatter_path(rows, cfg, n, sms) == "global":
+        return cm_scatter_add_global(counters, keys, items, cfg)
+    # every counter of `out` is written by the tile pass
+    plan = cm_tile_plan(rows, cfg)
+    per, slices = stream_split(n, sms)
+    out = torch.empty_like(counters)
+    # one scratch (the launcher lays it out): per-slice tile offsets,
+    # per-tile totals and unit starts, then the packed items, 32 or 64 bits
+    # an item, from a 16-byte boundary
+    head = slices * (plan.tiles + 1) + 2 * plan.tiles + 1
+    words = -(-head // 4) * 4 + per * slices * (1 if plan.log2_width >= 0 else 2)
+    scratch = torch.empty(words, dtype=torch.int32, device=device)
+    fn = _build.function("cm_scatter", "cm_scatter_tiled_launch", _TILED_ARGTYPES)
+    with torch.cuda.device(device):
+        err = fn(counters.data_ptr(), out.data_ptr(), keys.data_ptr(), items.data_ptr(), n, rows, cfg.depth,
+                 cfg.width, cfg.seed, plan.rows_per_tile, plan.tiles, plan.log2_width, per, slices,
+                 UNIT_ITEMS, scratch.data_ptr(), words, _build.stream(device))
+    _build.check("cm_scatter", err, "cm_scatter_add")
+    cm_scatter_add.launches += 1
+    return out
+
+
+def cm_scatter_add_global(
+    counters: torch.Tensor, keys: torch.Tensor, items: torch.Tensor, cfg: CMConfig
+) -> torch.Tensor:
+    """``cm_scatter_add`` on its global path, at any shape: one thread an
+    item lands d global ``atomicAdd`` hits into a copy of the bank (the
+    design before the tiled one).  ``cm_scatter_add`` takes it where the
+    tiled plan does not fit; called directly, it holds that path against
+    the plain version and times it at the main shape.  A CPU tensor runs the
+    plain version.
+    """
+    if all(t.device.type == "cpu" for t in (counters, keys, items)):
+        return cm_scatter_add_plain(counters, keys, items, cfg)
+    keys, items = _check_scatter(counters, keys, items, cfg)
+    device = _build.require_cuda(counters, keys, items)
+    out = counters.contiguous().clone()
+    n = keys.numel()
+    if n == 0 or out.shape[0] == 0:
         return out
     fn = _build.function("cm_scatter", "cm_scatter_launch", _SCATTER_ARGTYPES)
     with torch.cuda.device(device):
-        err = fn(
-            out.data_ptr(), keys.data_ptr(), items.data_ptr(), keys.numel(), out.shape[0],
-            cfg.depth, cfg.width, cfg.seed, _build.stream(device),
-        )
+        err = fn(out.data_ptr(), keys.data_ptr(), items.data_ptr(), n, out.shape[0], cfg.depth, cfg.width,
+                 cfg.seed, _build.stream(device))
     _build.check("cm_scatter", err, "cm_scatter_add")
     cm_scatter_add.launches += 1
     return out

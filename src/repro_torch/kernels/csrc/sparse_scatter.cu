@@ -85,69 +85,16 @@ __device__ __forceinline__ bool valid(const Plan& p, int r, int b, int k) {
 }
 
 // Apply f(row, bucket, rank) to every triple of [lo, hi) (lo a multiple of
-// 4).  Where the three arrays are 16-byte aligned a thread loads two quads
-// of triples at once, so eight are in flight.
+// 4; common.cuh's loader, two quads of each array in flight where vec).
+// Lanes past the end see rank 0, which is dropped.
 template <typename F>
 __device__ __forceinline__ void for_each_triple(const int32_t* __restrict__ row,
                                                 const int32_t* __restrict__ bucket,
                                                 const int32_t* __restrict__ rank, long long lo,
                                                 long long hi, bool vec, F&& f) {
-  long long tail = lo;
-  if (vec) {
-    const int4* r4 = reinterpret_cast<const int4*>(row);
-    const int4* b4 = reinterpret_cast<const int4*>(bucket);
-    const int4* k4 = reinterpret_cast<const int4*>(rank);
-    const long long q_lo = lo / 4, q_hi = hi / 4;
-    for (long long q = q_lo + threadIdx.x; q < q_hi; q += 2 * blockDim.x) {
-      const long long q2 = q + blockDim.x;
-      const int4 r0 = __ldg(r4 + q), b0 = __ldg(b4 + q), k0 = __ldg(k4 + q);
-      const bool two = q2 < q_hi;
-      const int4 r1 = two ? __ldg(r4 + q2) : make_int4(0, 0, 0, 0);
-      const int4 b1 = two ? __ldg(b4 + q2) : make_int4(0, 0, 0, 0);
-      const int4 k1 = two ? __ldg(k4 + q2) : make_int4(0, 0, 0, 0);  // rank 0: dropped
-      f(r0.x, b0.x, k0.x); f(r0.y, b0.y, k0.y); f(r0.z, b0.z, k0.z); f(r0.w, b0.w, k0.w);
-      f(r1.x, b1.x, k1.x); f(r1.y, b1.y, k1.y); f(r1.z, b1.z, k1.z); f(r1.w, b1.w, k1.w);
-    }
-    tail = q_hi * 4 > lo ? q_hi * 4 : lo;
-  }
-  for (long long i = tail + threadIdx.x; i < hi; i += blockDim.x) f(row[i], bucket[i], rank[i]);
-}
-
-// Exclusive scan of a[0 .. len) in shared memory, in place, by the whole
-// block, after every thread's writes to it; returns the total.  `spare`
-// holds 32 ints of shared memory.
-__device__ int block_scan(int32_t* a, int len, int32_t* spare) {
-  __syncthreads();
-  const int per = (len + blockDim.x - 1) / blockDim.x;
-  const int lo = min(len, static_cast<int>(threadIdx.x) * per), hi = min(len, lo + per);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += a[i];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  int x = sum;  // inclusive over the warp
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) spare[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < warps ? spare[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += y;
-    }
-    spare[lane] = w;  // inclusive over warps
-  }
-  __syncthreads();
-  int run = x - sum + (warp > 0 ? spare[warp - 1] : 0);
-  const int total = spare[warps - 1];
-  for (int i = lo; i < hi; ++i) {
-    const int v = a[i];
-    a[i] = run;
-    run += v;
-  }
-  __syncthreads();
-  return total;
+  const int32_t* src[3] = {row, bucket, rank};
+  const int32_t none[3] = {0, 0, 0};
+  repro::for_each_quad<3>(src, none, 3, lo, hi, vec, f);
 }
 
 // 1. partition: slice s = [s * per, (s + 1) * per) of the stream, sorted by
@@ -176,7 +123,7 @@ partition_kernel(const int32_t* __restrict__ row, const int32_t* __restrict__ bu
   });
   top = __reduce_max_sync(0xffffffffu, top);
   if ((threadIdx.x & 31) == 0) atomicMax(&block_top, top);
-  const int total = block_scan(cursor, p.tiles + 1, spare);  // syncs
+  const int total = repro::block_scan(cursor, p.tiles + 1, spare);  // syncs
   const bool w = block_top >= (1 << kNarrowRankBits);
   int32_t* mine = offsets + static_cast<long long>(blockIdx.x) * (p.tiles + 1);
   for (int i = threadIdx.x; i <= p.tiles; i += blockDim.x) mine[i] = cursor[i];
@@ -229,7 +176,7 @@ tile_kernel(Plan p, int slices, int per, const int32_t* __restrict__ offsets, co
     seg_lo[s] = o[0];
     seg_pre[s] = o[1] - o[0];
   }
-  const int entries = block_scan(seg_pre, slices, spare);  // syncs
+  const int entries = repro::block_scan(seg_pre, slices, spare);  // syncs
   if (threadIdx.x == 0) seg_pre[slices] = entries;
   __syncthreads();
   for (int e = threadIdx.x; e < entries; e += blockDim.x) {

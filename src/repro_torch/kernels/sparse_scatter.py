@@ -144,7 +144,7 @@ def sparse_scatter_coo(
         return (torch.zeros((rows, m), dtype=torch.int32, device=device),
                 torch.zeros((rows,), dtype=torch.int32, device=device))
     plan = tile_plan(rows, m)
-    per, slices = stream_split(n, torch.cuda.get_device_properties(device).multi_processor_count)
+    per, slices = stream_split(n, _build.sm_count(device))
     stream = _build.stream(device)
     if plan.global_path or slices > MAX_SLICES:
         cells = torch.zeros((rows, m), dtype=torch.int32, device=device)

@@ -21,7 +21,18 @@ or the reference's jnp path at p = 16:
                     the Pallas kernel in interpret mode, within rtol 1e-5
                     and atol 1e-4 (float32 sums in another order).
 
-The ``gpu`` tests hold each CUDA kernel to its plain version on the card.
+The launch plans of the two tiled kernels are pure functions, tested here:
+``cm_tile_plan`` / ``cm_scatter_path`` (every row in one tile or on the
+global path) and the units a tile is split into (every slice in one
+unit; ``_cm_unit_split`` here, as the CUDA plan kernel counts them), and
+``hll_partials`` (the register files a stream gets).  Plain-torch
+emulations of both decompositions -- cm: partition by tile, 32-bit packing,
+split tiles' partials summed mod 2^32; hll: the files each item lands in,
+their column max with the input registers -- are held bit for bit to the
+plain versions and to the reference.
+
+The ``gpu`` tests hold each CUDA kernel to its plain version on the card,
+and the tiled kernels also on adversarial streams.
 """
 
 import numpy as np
@@ -136,6 +147,69 @@ def test_hll_update_fused_is_functional_and_masks_everything_past_n_valid():
     torch.testing.assert_close(regs, before, rtol=0, atol=0)
     with pytest.raises(ValueError, match="uint8"):
         hll_fused.hll_update_fused(regs.to(torch.int32), _t(_u32(5, 2)), None, cfg)
+
+
+@pytest.mark.parametrize("p", [4, 8, 12, 16])
+def test_hll_partials_two_files_an_sm_fewer_for_short_streams(p):
+    per_file = max(hll_fused.FILE_THREADS, (1 << p) // 16)
+    most = hll_fused.FILES_PER_SM * 132
+    for n in (1, 127, per_file, per_file + 1, 1 << 19, (1 << 22) + 3):
+        files = hll_fused.hll_partials(n, p, 132)
+        assert 1 <= files <= most
+        assert files == min(most, -(-n // per_file))
+    assert hll_fused.hll_partials(1 << 22, 16, 132) == 264  # the main path: two an SM
+    assert hll_fused.hll_partials(1 << 19, 16, 132) == 128  # a pipelined chunk (k = 8)
+    assert hll_fused.hll_partials(127, p, 132) == 1
+    counts = [hll_fused.hll_partials(n, p, 132) for n in range(1, 1 << 16, 997)]
+    assert counts == sorted(counts)  # more items, never fewer files
+
+
+def _hll_files_emulation(registers, items, n, cfg, sms, head):
+    """The two-pass kernel in plain torch: which block's file each item
+    lands in (``head`` items before the first 16-byte boundary, then one
+    16-byte quad a thread, grid-stride, then the last < 4 items), each file
+    the max of its items' ranks from zero, then the column max of the files
+    and the input registers."""
+    files = hll_fused.hll_partials(n, cfg.p, sms)
+    threads = hll_fused.FILE_THREADS
+    head = min(head, n)
+    quads = (n - head) // 4
+    i = torch.arange(n)
+    gid = torch.where(i < head, i, torch.where(i < head + 4 * quads, ((i - head) // 4) % (files * threads),
+                                               i - head - 4 * quads))
+    block = gid // threads
+    assert int(block.max()) < files
+    idx, rank = hll.hash_index_rank(items[:n], cfg)
+    out = torch.zeros((files, cfg.m), dtype=torch.int64)
+    out.view(-1).scatter_reduce_(0, block * cfg.m + idx.to(torch.int64), rank.to(torch.int64), "amax")
+    return torch.maximum(registers.to(torch.int64), out.amax(0)).to(torch.uint8), files
+
+
+@pytest.mark.parametrize("hash_bits", [32, 64])
+@pytest.mark.parametrize("p,n,head,sms", [(4, 1, 0, 132), (4, 127, 3, 132), (8, 5000, 1, 3), (12, 70_001, 2, 5),
+                                          (16, 90_003, 3, 7), (16, 1 << 17, 0, 132)])
+def test_hll_partial_files_match_plain_and_reference(p, n, head, sms, hash_bits):
+    cfg = HLLConfig(p=p, hash_bits=hash_bits, seed=2**64 - 1)
+    rcfg = RefConfig(p=p, hash_bits=hash_bits, seed=2**64 - 1)
+    values = _u32(n + 9, p * n)
+    values[n // 3:: 5] = 0xDEADBEEF  # one hot item
+    regs = _registers(cfg, n)
+    items = _t(values)
+    got, files = _hll_files_emulation(torch.from_numpy(regs), items, n, cfg, sms, head)
+    assert files == hll_fused.hll_partials(n, p, sms)
+    np.testing.assert_array_equal(got.numpy(), hll_fused.hll_update_fused_plain(torch.from_numpy(regs), items, n,
+                                                                                 cfg).numpy())
+    if p <= ref_hll_fused.MAX_FUSED_P:
+        tile = ref_hll_fused.DEFAULT_BLOCK_ROWS * LANES
+        padded = np.zeros(-(-(n + 9) // tile) * tile, np.uint32)
+        padded[: n + 9] = values
+        want = ref_hll_fused.hll_update_fused(
+            jnp.asarray(regs.astype(np.int32)).reshape(1, cfg.m), jnp.asarray(padded).reshape(-1, LANES),
+            jnp.full((1, 1), n, jnp.int32), rcfg, interpret=True,
+        ).reshape(cfg.m)
+    else:
+        want = ref_oracles.hll_update_fused_ref(jnp.asarray(regs), jnp.asarray(values[:n]), rcfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.uint8))
 
 
 # ----------------------------------------------------------------------------
@@ -410,6 +484,177 @@ def test_cm_window_fold_sum_wide_matches_reference_jnp_fold():
         cm_scatter.cm_window_fold_sum(torch.from_numpy(ring.astype(np.int64)), torch.from_numpy(mask))
 
 
+# the tiled cm_scatter_add: its plan, and a plain-torch emulation of its
+# decomposition (partition by tile, units over groups of slices, partials
+# summed mod 2^32)
+CM_PLAN_CONFIGS = [(d, w) for d in (1, 4, 16) for w in (1, 1000, 1024, 1 << 16)]  # chip_smoke's kernels phase
+
+
+def _cm_unit_split(total, slices, unit_items=cm_scatter.UNIT_ITEMS):
+    """The work units of a tile with ``total`` items over ``slices`` slices,
+    as cm_scatter.cu's plan kernel counts them (``unit_count``):
+    ceil(total / unit_items), at least 1, at most one a slice; unit j takes
+    the slices [j * slices // u, (j + 1) * slices // u)."""
+    units = min(slices, max(1, -(-total // unit_items)))
+    return [(j * slices // units, (j + 1) * slices // units) for j in range(units)]
+
+
+@pytest.mark.parametrize("rows", [1, 3, 1024])
+@pytest.mark.parametrize("depth,width", CM_PLAN_CONFIGS)
+def test_cm_tile_plan_covers_every_row_once(depth, width, rows):
+    cfg = CMConfig(depth, width)
+    plan = cm_scatter.cm_tile_plan(rows, cfg)
+    assert plan.cells == depth * width
+    assert plan.log2_width == (width.bit_length() - 1 if width & (width - 1) == 0 else -1)
+    if depth * width > cm_scatter.TILE_CELLS:
+        # a row larger than a tile: the global path (w = 2^16)
+        assert plan.global_path and width == 1 << 16
+        return
+    assert not plan.global_path
+    # whole rows, the most a power of two of them that fit 2^14 counters:
+    # 4 at CMConfig(4, 1024), 16 at (1, 1000), 4 at (4, 1000), 16384 at (1, 1)
+    per = plan.rows_per_tile
+    assert per & (per - 1) == 0 and per * plan.cells <= cm_scatter.TILE_CELLS < 2 * per * plan.cells
+    spans = [plan.rows_of(t) for t in range(plan.tiles)]
+    # back to back from row 0 to B: every row in exactly one tile
+    assert spans[0][0] == 0 and spans[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    # every tile but the last is full; the last holds what is left
+    assert all(hi - lo == plan.rows_per_tile for lo, hi in spans[:-1])
+    assert 0 < spans[-1][1] - spans[-1][0] <= plan.rows_per_tile
+    # a narrow item, (row in tile, h.hi mod w, h.lo mod w), fits 32 bits
+    if plan.log2_width >= 0:
+        assert (plan.rows_per_tile - 1).bit_length() + 2 * plan.log2_width <= 32
+
+
+def test_cm_tile_plan_main_shape_and_global_paths():
+    plan = cm_scatter.cm_tile_plan(1024, CMConfig(4, 1024))
+    assert (plan.rows_per_tile, plan.tiles, plan.log2_width, plan.global_path) == (4, 256, 10, False)
+    assert cm_scatter.cm_scatter_path(1024, CMConfig(4, 1024), 1 << 22, 132) == "tiled"
+    # a row past 2^14 counters, more tiles than a shared histogram, more
+    # slices than a tile block gathers from: the global path
+    assert cm_scatter.cm_scatter_path(1024, CMConfig(1, 1 << 16), 1 << 22, 132) == "global"
+    assert cm_scatter.cm_scatter_path(4, CMConfig(2, 1 << 13), 10, 132) == "tiled"
+    assert cm_scatter.cm_scatter_path(4, CMConfig(4, 1 << 13), 10, 132) == "global"
+    assert cm_scatter.cm_tile_plan(1 << 16, CMConfig(16, 1024)).global_path  # 2^16 tiles
+    assert not cm_scatter.cm_tile_plan(1 << 14, CMConfig(16, 1024)).global_path
+    assert cm_scatter.cm_scatter_path(1024, CMConfig(4, 1024), 1 << 27, 132) == "global"  # 8192 slices
+    assert cm_scatter.cm_scatter_path(1024, CMConfig(4, 1024), 1 << 25, 132) == "tiled"  # 2048 slices
+
+
+@pytest.mark.parametrize("total,slices", [(0, 264), (1, 264), (8192, 264), (8193, 264), (1_823_276, 264),
+                                          (1 << 22, 264), (50_000, 1), (50_000, 3), (40_000, 7)])
+def test_cm_unit_split_covers_every_slice_once(total, slices):
+    units = _cm_unit_split(total, slices)
+    want = min(slices, max(1, -(-total // cm_scatter.UNIT_ITEMS)))
+    assert len(units) == want
+    # groups of slices back to back: every slice, so every item of the
+    # tile's segment, in exactly one unit; none empty
+    assert units[0][0] == 0 and units[-1][1] == slices
+    assert all(a[1] == b[0] for a, b in zip(units, units[1:]))
+    assert all(hi > lo for lo, hi in units)
+    # the hot tile (keys 0-3) of the timing traffic, 2^22 items: 223 units
+    if total == 1_823_276:
+        assert len(units) == 223
+
+
+def _cm_tiled_emulation(counters, keys, items, cfg, sms, unit_items):
+    """The tiled kernel's decomposition in plain torch, on uint32 values held
+    in int64: slices sorted by tile, each tile's units over their groups of
+    slices (the first from the tile's counters, the others from zero), the
+    partials summed mod 2^32.  Returns (int32 counters, the units' sizes)."""
+    from repro_torch.sketch import murmur3, u64
+
+    rows, depth, width = counters.shape
+    plan = cm_scatter.cm_tile_plan(rows, cfg)
+    assert not plan.global_path
+    n = keys.numel()
+    per, slices = sparse_scatter.stream_split(n, sms)
+    h = murmur3.murmur3_64(items, cfg.seed)
+    lo, hi = h & u64.MASK32, u64.shr(h, 32)
+    valid = (keys >= 0) & (keys < rows)
+    tile = torch.where(valid, keys // plan.rows_per_tile, -1).to(torch.int64)
+    # partition: each slice's valid items sorted by tile, stored packed
+    segments = []  # per slice: {tile: (row in tile, lo, hi) of its items}
+    for s in range(slices):
+        part = torch.arange(s * per, min(n, (s + 1) * per))
+        part = part[valid[part]]
+        part = part[torch.argsort(tile[part], stable=True)]
+        row = keys[part].to(torch.int64) - tile[part] * plan.rows_per_tile
+        if plan.log2_width >= 0:
+            k, low = plan.log2_width, width - 1
+            packed = (row << (2 * k)) | ((hi[part] & low) << k) | (lo[part] & low)
+            assert not bool((packed >= 1 << 32).any())
+            fields = (packed >> (2 * k), packed & low, (packed >> k) & low)
+        else:
+            fields = (row, lo[part], hi[part])
+        segments.append({int(t): tuple(f[tile[part] == t] for f in fields) for t in tile[part].unique()})
+    out = counters.reshape(rows, -1).to(torch.int64) & u64.MASK32
+    sizes = []
+    r = torch.arange(depth, dtype=torch.int64)[:, None]
+    for t in range(plan.tiles):
+        first, last = plan.rows_of(t)
+        total = sum(len(seg[t][0]) for seg in segments if t in seg)
+        partials = []
+        for j, (s0, s1) in enumerate(_cm_unit_split(total, slices, unit_items)):
+            partial = out[first:last].clone() if j == 0 else torch.zeros_like(out[first:last])
+            size = 0
+            for seg in segments[s0:s1]:
+                if t not in seg:
+                    continue
+                row, lo_t, hi_t = seg[t]
+                mixed = (lo_t[None, :] + r * hi_t[None, :]) & u64.MASK32
+                col = mixed & (width - 1) if plan.log2_width >= 0 else mixed % width
+                flat = (row[None, :] * depth * width + r * width + col).reshape(-1)
+                partial.view(-1).index_add_(0, flat, torch.ones_like(flat))
+                size += len(row)
+            partials.append(partial)
+            sizes.append(size)
+        out[first:last] = sum(partials) & u64.MASK32
+    assert sum(sizes) == int(valid.sum())  # every valid item in exactly one unit
+    return (out - ((out >> 31) << 32)).to(torch.int32).reshape(rows, depth, width), sizes
+
+
+@pytest.mark.parametrize("depth,width,rows,n,sms,unit_items", [
+    (4, 1024, 9, 5000, 2, 64),     # the main config, narrow packing, 3 tiles, split tiles
+    (4, 1024, 1, 3000, 4, 100),    # B = 1: one tile
+    (3, 1000, 11, 4099, 2, 128),   # w not a power of two: 64-bit items hashed again
+    (1, 1, 5, 2000, 3, 50),        # one counter a row, 16384 rows a tile
+    (16, 1024, 3, 2500, 1, 300),   # a row fills a tile
+    (2, 64, 130, 6000, 3, 500),    # 128 rows a tile: the last tile ragged
+    (3, 1000, 9, 3000, 2, 200),    # 16384 // 3000 = 5 rows fit, a tile holds 4
+])
+def test_cm_tiled_decomposition_matches_plain_and_reference(depth, width, rows, n, sms, unit_items):
+    cfg, rcfg = CMConfig(depth, width, seed=2**64 - 1), RefCMConfig(depth, width, seed=2**64 - 1)
+    keys, items = _cm_stream(n, rows, depth + width)
+    # a hot (key, item) pair, so that one tile is split into several units
+    keys[n // 2:: 3], items[n // 2:: 3] = rows // 2, 12345
+    counters = np.full((rows, depth, width), 0xFFFFFFF0, dtype=np.uint32)  # the adds wrap
+    counters[0] = _near_wrap((depth, width), n)
+    args = (torch.from_numpy(counters.view(np.int32)), torch.from_numpy(keys), torch.from_numpy(items))
+    got, sizes = _cm_tiled_emulation(*args, cfg, sms, unit_items)
+    assert len(sizes) > cm_scatter.cm_tile_plan(rows, cfg).tiles  # some tile was split
+    want = cm_scatter.cm_scatter_add_plain(*args, cfg)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    ref_args = (jnp.asarray(counters), jnp.asarray(keys), jnp.asarray(items), rcfg)
+    # the Pallas kernel in interpret mode where its VMEM cap (4096 cells a row) allows it
+    ref = ref_cm_update(*ref_args, interpret=True) if depth * width <= 4096 else cm_update_jnp(*ref_args)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(ref))
+
+
+def test_cm_tiled_decomposition_only_dropped_keys():
+    cfg = CMConfig(4, 1024)
+    keys = np.where(np.arange(999) % 2 == 0, -1, 7).astype(np.int32)  # -1 and B
+    items = np.arange(999, dtype=np.int32)
+    counters = torch.full((7, 4, 1024), -16, dtype=torch.int32)
+    got, sizes = _cm_tiled_emulation(counters, torch.from_numpy(keys), torch.from_numpy(items), cfg, 2, 64)
+    assert sum(sizes) == 0
+    torch.testing.assert_close(got, counters, rtol=0, atol=0)
+    torch.testing.assert_close(
+        cm_scatter.cm_scatter_add_plain(counters, torch.from_numpy(keys), torch.from_numpy(items), cfg), counters,
+        rtol=0, atol=0)
+
+
 # ----------------------------------------------------------------------------
 # rwkv_intra
 # ----------------------------------------------------------------------------
@@ -668,6 +913,74 @@ def test_cm_scatter_add_kernel_matches_plain_on_card():
         got = cm_scatter.cm_scatter_add(counters, keys, items, cfg)
         assert cm_scatter.cm_scatter_add.launches == before + 1
         torch.testing.assert_close(got, cm_scatter.cm_scatter_add_plain(counters, keys, items, cfg), rtol=0, atol=0)
+
+
+def _cm_adversarial(n, seed):
+    """The tiled cm_scatter_add's hard streams, {name: (keys, items, rows, cfg)}."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-1, 1025, n).astype(np.int32)
+    items = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    cfg = CMConfig(4, 1024, seed=2**64 - 1)
+    return {
+        # every item on one key and one item: one counter a depth row takes
+        # every add, across the units of the split tile
+        "one key one item": (np.full(n, 517, np.int32), np.full(n, 99, np.int32), 1024, cfg),
+        "only dropped keys": (np.where(keys % 2 == 0, -1, 1024).astype(np.int32), items, 1024, cfg),
+        "one row": (np.where(keys % 5 == 0, 1, 0).astype(np.int32), items, 1, cfg),  # B = 1, key 1 dropped
+        # 1023 rows: the last tile holds 3; w = 1000: 64-bit items
+        "ragged tiles": (keys, items, 1023, cfg),
+        "w=1000": (np.clip(keys, -1, 100), items, 100, CMConfig(3, 1000, seed=5)),
+        "global path": (keys, items, 1024, CMConfig(1, 1 << 16)),
+    }
+
+
+@pytest.mark.gpu
+def test_cm_scatter_add_adversarial_streams_on_card():
+    _need_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = (1 << 22) + 3
+    for name, (keys, items, rows, cfg) in _cm_adversarial(n, 11).items():
+        counters = torch.full((rows, cfg.depth, cfg.width), -16, dtype=torch.int32, device="cuda")  # wraps
+        args = (counters, torch.from_numpy(keys).cuda(), torch.from_numpy(items).cuda(), cfg)
+        assert cm_scatter.cm_scatter_path(rows, cfg, n, sms) == ("global" if name == "global path" else "tiled")
+        got = cm_scatter.cm_scatter_add(*args)
+        torch.testing.assert_close(got, cm_scatter.cm_scatter_add_plain(*args), rtol=0, atol=0, msg=name)
+    # many slices: 2^25 items, 2048 slices of 2^14
+    n = (1 << 25) + 5
+    keys, items = (torch.from_numpy(a).cuda() for a in _cm_stream(n, 1024, 3))
+    counters = torch.from_numpy(_near_wrap((1024, 4, 1024), 4).view(np.int32)).cuda()
+    assert sparse_scatter.stream_split(n, sms)[1] > 2000
+    assert cm_scatter.cm_scatter_path(1024, CMConfig(4, 1024), n, sms) == "tiled"
+    torch.testing.assert_close(cm_scatter.cm_scatter_add(counters, keys, items, CMConfig(4, 1024)),
+                               cm_scatter.cm_scatter_add_plain(counters, keys, items, CMConfig(4, 1024)),
+                               rtol=0, atol=0)
+    # the global path at the main config
+    keys, items = (torch.from_numpy(a).cuda() for a in _cm_stream((1 << 20) + 1, 1024, 5))
+    want = cm_scatter.cm_scatter_add_plain(counters, keys, items, CMConfig(4, 1024))
+    before = cm_scatter.cm_scatter_add.launches
+    torch.testing.assert_close(cm_scatter.cm_scatter_add_global(counters, keys, items, CMConfig(4, 1024)), want,
+                               rtol=0, atol=0)
+    assert cm_scatter.cm_scatter_add.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_hll_update_fused_adversarial_streams_on_card():
+    _need_card()
+    for p in (4, 16):
+        for hash_bits in (32, 64):
+            cfg = HLLConfig(p=p, hash_bits=hash_bits, seed=2**64 - 1)
+            preset = torch.from_numpy(_registers(cfg, p + hash_bits)).cuda()
+            same = torch.full(((1 << 22) + 3,), 0x5EED, dtype=torch.int32, device="cuda")  # one hot register
+            x = _t(_u32((1 << 22) + 7, p)).cuda()
+            cases = {"identical items": (same, None), "n=1": (x[:1], None), "n=127": (x[:127], None),
+                     "n_valid half": (x, x.numel() // 2)}
+            for offset in (1, 2, 3):  # items off a 16-byte boundary
+                cases[f"offset {offset}"] = (x[offset:], None)
+            for name, (items, n_valid) in cases.items():
+                for regs in (torch.zeros_like(preset), preset):
+                    got = hll_fused.hll_update_fused(regs, items, n_valid, cfg)
+                    want = hll_fused.hll_update_fused_plain(regs, items, n_valid, cfg)
+                    torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"{cfg} {name}")
 
 
 @pytest.mark.gpu
