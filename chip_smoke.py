@@ -20,7 +20,16 @@ raises (exit code 1) when it fails:
   kernels  each kernel against its plain PyTorch version on the card,
            bit for bit, at the main path's shapes and at ragged lengths,
            with the edge items 0, 0xFFFFFFFF and negative int32, and keys
-           -1 and B for the bank; hash/rank also against the pure-python
+           -1 and B for the bank; bank_scatter_max also on adversarial
+           streams (every entry on one key and on one cell, B = 1, B - 1
+           rows, p = 4 (the whole bank one tile) and p = 12, keys -1, B and
+           2^31 - 1, buckets -1 and m, ranks 0 and 256, n in {0, 1, 127},
+           2^25 + 5 entries in 2048 slices, and plans past the tiled limits,
+           m = 2^17 and m = 20), each on the path it picks and on both paths
+           where the tiled one's limits allow it, the input bank unchanged,
+           printing the path each case took; bucket_fold at k in {1, 3, 8,
+           9} x m in {16, 20, 2^14, 2^16} uint8, (5, 1001) int32 and rows
+           off a 16-byte boundary; hash/rank also against the pure-python
            Murmur3 oracles; sparse_scatter_coo at p in {4, 8, 12, 16} with
            rows -1 and B and rank-0 entries, and on adversarial streams
            (every triple on one cell, one row at p = 16 spanning four
@@ -115,11 +124,16 @@ raises (exit code 1) when it fails:
            larger of bytes over 3.35 TB/s and float32 operations over
            67 TFLOP/s), its plain version's time and, where one PyTorch
            call computes the same function, that call's time;
-           cm_scatter_add and hll_update_fused in 5 rounds (min, median,
-           max; the record takes the first, as every row); beside them
-           sparse_scatter_coo and cm_scatter_add on their global paths
-           (the previous designs).
-  profile  torch.profiler over a few stream chunks, bank ticks, hybrid
+           cm_scatter_add, hll_update_fused, bank_scatter_max and
+           bucket_fold in 5 rounds (min, median, max; the record takes the
+           first, as every row); bucket_fold's floor, the time of a (1, 16)
+           fold; beside them sparse_scatter_coo and cm_scatter_add on
+           their global paths (the previous designs), and bank_scatter_max
+           on both paths at each caller's shape and at banks of 16, 32 and
+           48 MiB, on random registers and on the registers one update
+           leaves (the numbers of bank_scatter.py's path rule).
+  profile  torch.profiler over a few stream chunks, bank ticks and their
+           bank_scatter_max alone, hybrid
            ticks, full-window reads, count-min ticks, their label votes
            alone and their cm_scatter_add alone, full-window reads of the
            count-min ring, full-width RWKV6-3B prefills and decode steps,
@@ -132,7 +146,8 @@ just after; the nine sketch kernels must have launched there.  They are
 zeroed again just before the serve phase and read just after; rwkv_intra
 must have launched there, once per layer of every prefill whose prompt a
 chunk divides.  After the kernels phase it checks that the count-min main
-path's shapes take the tiled cm_scatter_add.
+path's shapes take the tiled cm_scatter_add, and the bank tick the tiled
+bank_scatter_max.
 Before the last line it prints the kernels' JSON record and the card's
 name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -178,6 +193,7 @@ from repro_torch.kernels.cm_scatter import (  # noqa: E402
 )
 from repro_torch.kernels.hash_rank import hash_rank, hash_rank_plain  # noqa: E402
 from repro_torch.kernels.hll_fused import hll_update_fused, hll_update_fused_plain  # noqa: E402
+from repro_torch.kernels import bank_scatter as bank_module  # noqa: E402
 from repro_torch.kernels import sparse_scatter as sparse_module  # noqa: E402
 from repro_torch.kernels import cm_scatter as cm_module  # noqa: E402
 from repro_torch.kernels import hll_fused as hll_module  # noqa: E402
@@ -278,7 +294,8 @@ KERNEL_SOURCES = {
     "cm_window_fold_sum": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:186"),
     "rwkv_intra": ("src/repro_torch/kernels/csrc/rwkv_intra.cu", "src/repro/kernels/rwkv_intra.py:54"),
 }
-SPREAD_KERNELS = ("cm_scatter_add", "hll_update_fused")  # timed in rounds, min/median/max printed
+# timed in rounds, min/median/max printed
+SPREAD_KERNELS = ("cm_scatter_add", "hll_update_fused", "bank_scatter_max", "bucket_fold")
 SPREAD_ROUNDS = 5
 PROFILE_ATTEMPTS = 3  # recordings of a profile step before its partial one is reported
 SERVE_KERNELS = ("rwkv_intra",)  # launched on the serve phase; the others on the sketch phases
@@ -358,6 +375,9 @@ def phase_build() -> dict:
     print("[build] dynamic shared memory per block: hll_fused's file pass m bytes (65536 at p = 16); "
           "cm_scatter 4 * (counters of a tile + 2 slices + 1) a tile block (67,652 at the main shape), "
           "4 * (tiles + 4 + items a slice) a partition block (64,592 at the main shape); "
+          "bank_scatter 65536 + 4 * (2 slices + 1) a tile block (67,652 at the main shape), "
+          "4 * (tiles + 4 + entries a slice) a partition block (67,664 at the main shape), "
+          "8 * (tiles + 1) the plan block; "
           "rwkv_intra 72960 bytes at C = N = 64; "
           "sparse_scatter 4 * (2^14 + 2^10 + 2 slices + 1) a tile block (71748 at 264 slices), "
           "4 * (tiles + 4 + triples a slice) a partition block (71520 on the bench_sparse stream); "
@@ -426,6 +446,71 @@ def _cm_adversarial(n: int, rows: int, rng: np.random.Generator) -> dict:
     }
 
 
+def _bank_adversarial(n: int, rows: int, rng: np.random.Generator) -> dict:
+    """bank_scatter_max's hard streams, {name: (rows, m, keys, idx, rank)} at
+    p = 16 unless named: every entry on one key (a tile split into ~n / 8192
+    units) and on one cell, B = 1, B - 1 rows, p = 4 (the whole bank in one
+    tile), p = 12, keys -1, B and 2^31 - 1, buckets -1 and m, ranks 0 and
+    256, n in {0, 1, 127}; plans past the tiled limits (m = 2^17, m = 20)."""
+    m = 1 << 16
+    keys = ((rng.zipf(ZIPF_A, n) - 1) % rows).astype(np.int32)
+    idx = rng.integers(0, m, n, dtype=np.int32)
+    rank = rng.integers(1, 40, n, dtype=np.int32)
+    bad_keys, bad_idx, bad_rank = keys.copy(), idx.copy(), rank.copy()
+    bad_keys[0::4], bad_keys[1::4], bad_keys[2::4] = -1, rows, 2**31 - 1
+    bad_idx[0::3], bad_idx[1::3] = -1, m
+    bad_rank[0::3], bad_rank[1::3] = 0, 256
+    cases = {
+        "one key": (rows, m, np.zeros(n, np.int32), idx, rank),
+        "one cell": (rows, m, np.full(n, rows // 2, np.int32), np.full(n, m - 1, np.int32), rank),
+        "B=1": (1, m, np.where(keys % 5 == 0, 1, 0).astype(np.int32), idx, rank),
+        "B-1 rows": (rows - 1, m, keys, idx, rank),
+        "p=4": (rows, 16, keys, idx % 16, rank),
+        "p=12": (rows, 1 << 12, keys, idx % (1 << 12), rank),
+        "dropped keys": (rows, m, bad_keys, idx, rank),
+        "dropped buckets": (rows, m, keys, bad_idx, rank),
+        "dropped ranks": (rows, m, keys, idx, bad_rank),
+        "m=2^17": (8, 1 << 17, keys % 9, idx * 2, rank),
+        "m=20": (64, 20, keys % 65, idx % 21, rank),
+    }
+    for length in (0, 1, 127):
+        cases[f"n={length}"] = (rows - 1, m, keys[:length], idx[:length], rank[:length])
+    return cases
+
+
+def _bank_cases(device, n: int, rows: int, rng: np.random.Generator) -> float:
+    """bank_scatter_max on its hard streams and 2^25 + 5 entries (2048
+    slices), on the path it picks and on both paths where the tiled one's
+    limits allow; the input bank unchanged after every call.  Prints the
+    path each case took."""
+    sms = _sms(device)
+    cases = _bank_adversarial(n + 3, rows, rng)
+    many = 8 * n + 5
+    keys = rng.integers(0, rows, many, dtype=np.int32)
+    keys[::5] = 0  # a hot row: a fifth of the entries, split over units of all 2048 slices
+    cases[f"many slices, n={many}"] = (rows, 1 << 16, keys, rng.integers(0, 1 << 16, many, dtype=np.int32),
+                                       rng.integers(1, 30, many, dtype=np.int32))
+    err, paths = 0.0, {}
+    for what, (b_rows, m, keys, idx, rank) in cases.items():
+        bank = torch.from_numpy(rng.integers(0, 20, (b_rows, m), dtype=np.uint8)).to(device)
+        before = bank.clone()
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (keys, idx, rank)]
+        want = bank_scatter_max_plain(bank, *args)
+        paths[what] = bank_module.bank_scatter_path(b_rows, m, len(keys), sms)
+        fits = bank_module.tiled_fits(b_rows, m, len(keys), sms)
+        if fits == what.startswith("m="):
+            raise AssertionError(f"bank_scatter_max {what}: the tiled limits {'allow' if fits else 'refuse'} it")
+        runs = {"chosen": bank_scatter_max, "global": bank_module.bank_scatter_max_global}
+        if fits:
+            runs["tiled"] = bank_module.bank_scatter_max_tiled
+        for path, fn in runs.items():
+            err = max(err, _max_abs_err(fn(bank, *args), want, f"bank_scatter_max {what}, {path}"))
+        _max_abs_err(bank, before, f"bank_scatter_max {what}: the input bank")
+        del bank, before, args, want
+    print(f"[kernels] bank_scatter_max paths: {json.dumps(paths)}")
+    return err
+
+
 def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
                   hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, cm_cells: int = CM_CELL_CAP,
                   intra_shapes=INTRA_SHAPES, intra_strong=INTRA_STRONG) -> dict:
@@ -490,8 +575,10 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
                 )
     print(f"[kernels] hll_update_fused register files per case: {json.dumps(files)}")
     del same, x, cases
-    for k, m, dtype in ((PIPELINES, 1 << 16, torch.uint8), (PIPELINES, 1 << 14, torch.uint8),
-                        (3, 20, torch.uint8), (1, 16, torch.uint8), (5, 1001, torch.int32)):
+    # k within one group of 8 rows in flight, and past it; rows a multiple
+    # of 16 bytes (16-byte columns) or not (4-byte columns)
+    folds = [(k, m, torch.uint8) for k in (1, 3, PIPELINES, PIPELINES + 1) for m in (16, 20, 1 << 14, 1 << 16)]
+    for k, m, dtype in folds + [(5, 1001, torch.int32)]:
         hi = 62 if dtype == torch.uint8 else 2**31 - 1
         partials = torch.from_numpy(
             rng.integers(0, hi, (k, m)).astype(np.uint8 if dtype == torch.uint8 else np.int32)
@@ -500,6 +587,11 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
             errs["bucket_fold"],
             _max_abs_err(bucket_fold(partials), bucket_fold_plain(partials), f"bucket_fold ({k}, {m}) {dtype}"),
         )
+    # rows 4 bytes past a 16-byte boundary (a view): the 4-byte columns
+    flat = torch.from_numpy(rng.integers(0, 62, (PIPELINES + 1) * (1 << 14), dtype=np.uint8)).to(device)
+    view = flat[4: 4 + PIPELINES * (1 << 14)].view(PIPELINES, 1 << 14)
+    errs["bucket_fold"] = max(errs["bucket_fold"], _max_abs_err(bucket_fold(view), bucket_fold_plain(view),
+                                                                "bucket_fold off a 16-byte boundary"))
     cfg = HLLConfig(p=16, hash_bits=64)
     bank = torch.from_numpy(rng.integers(0, 20, (rows, cfg.m), dtype=np.uint8)).to(device)
     for length in (n, n + 3, 1, 1000):
@@ -517,6 +609,7 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
                 f"bank_scatter_max B={rows} n={length}",
             ),
         )
+    errs["bank_scatter_max"] = max(errs["bank_scatter_max"], _bank_cases(device, n, rows, rng))
     for p in (4, 8, 12, 16):
         m = 1 << p
         srows = hybrid_rows if p <= 12 else rows
@@ -1568,24 +1661,78 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
         }
         if spread:
             out[name]["spread_ms"] = spread
+    if "bucket_fold" in out:
+        # the card's time for one launch of this kernel: a (1, 16) fold
+        tiny = partials[:1, :16].contiguous()
+        out["bucket_fold"]["floor_ms"] = _time_ms(bucket_fold, [(tiny,)])[0]
     for name, row in out.items():
         print(f"[timing] {name}: {json.dumps(row)}")
-    if only is not None:
-        return out
-    # sparse_scatter_coo's global path at the same shape (zeroed cells,
-    # atomicMax and first-touch counts, one thread a triple, uncapped grid)
     variants = {}
-    with _setting(sparse_module, "HIST_TILES", 0):
-        variants["sparse_scatter_coo global path"] = _time_ms(
-            lambda: sparse_scatter_coo(hrow, hidx, hrank, hybrid_rows, sm), [()])[0]
-    # cm_scatter_add's global path at the main shape: one atomicAdd a hit
-    # into a copy of the bank (the previous design)
-    print(f"[timing] cm_scatter_add path at the main shape: {_cm_path(rows, cmc, n, device)}")
-    variants["cm_scatter_add global path"] = _time_ms(
-        lambda k, x: cm_module.cm_scatter_add_global(cm_bank, k, x, cmc), cm_streams)[0]
-    print(f"[timing] variants, device ms: {json.dumps(variants)}")
-    out["variants"] = variants
+    if only is None:
+        # sparse_scatter_coo's global path at the same shape (zeroed cells,
+        # atomicMax and first-touch counts, one thread a triple, uncapped grid)
+        with _setting(sparse_module, "HIST_TILES", 0):
+            variants["sparse_scatter_coo global path"] = _time_ms(
+                lambda: sparse_scatter_coo(hrow, hidx, hrank, hybrid_rows, sm), [()])[0]
+        # cm_scatter_add's global path at the main shape: one atomicAdd a hit
+        # into a copy of the bank (the previous design)
+        print(f"[timing] cm_scatter_add path at the main shape: {_cm_path(rows, cmc, n, device)}")
+        variants["cm_scatter_add global path"] = _time_ms(
+            lambda k, x: cm_module.cm_scatter_add_global(cm_bank, k, x, cmc), cm_streams)[0]
+    if (only is None or "bank_scatter_max" in only) and hasattr(bank_module, "bank_scatter_max_global"):
+        variants.update(_bank_path_times(device, rows, n, rng))
+    if variants:
+        print(f"[timing] variants, device ms: {json.dumps(variants)}")
+        out["variants"] = variants
     return out
+
+
+def bank_callers(rows: int = BANK_ROWS, n: int = BANK_TICK_ITEMS) -> dict:
+    """The bank backend's callers on the main paths, {name: (B, p, entries,
+    share of entries with a dropped key)}: ``SketchBank.update_many``'s tick,
+    a ``WindowedBank`` epoch (its current slice), the telemetry board's flush
+    (``SketchBank.from_sketches`` of the streams), ``HybridBank``'s dense
+    block at the bench_sparse acceptance size (1638 promoted rows; the last
+    chunk's 909,312 entries, the 10 % bound for sparse rows keyed -1)."""
+    return {
+        "bank tick": (rows, 16, n, 0.0),
+        "window epoch": (WINDOW_ROWS, 12, WINDOW_EPOCH_ITEMS, 0.0),
+        "board flush": (BOARD_STREAMS, 12, BOARD_EPOCH_ITEMS, 0.0),
+        "hybrid dense block": (1638, 12, 909_312, 0.1),
+    }
+
+
+def _bank_path_times(device, rows: int, n: int, rng: np.random.Generator) -> dict:
+    """bank_scatter_max's two paths at each caller's shape, device ms, and
+    the path ``bank_scatter_path`` picks there; Zipf(1.2) keys as the bank
+    and window phases draw them, 4 streams rotated.  Each shape twice: on a
+    bank of random registers in [0, 20) (the timing row's data) and on the
+    bank the caller holds in steady state, the registers after one update
+    of the same traffic."""
+    times = {}
+    # and p = 16 banks between the callers' 1-6.5 MiB and the tick's 64 MiB,
+    # where the rule's bank-size limit falls, and the tick's bank at a
+    # quarter of its entries
+    sweep = {f"{b_rows * 64 // 1024} MiB": (b_rows, 16, n, 0.0) for b_rows in (rows // 4, rows // 2, 3 * rows // 4)}
+    sweep["bank tick, a quarter of the entries"] = (rows, 16, n // 4, 0.0)
+    for name, (b_rows, p, length, dropped) in {**bank_callers(rows, n), **sweep}.items():
+        cfg = HLLConfig(p=p, hash_bits=64)
+        streams = []
+        for _ in range(4):
+            keys, items = _zipf_keyed(b_rows, length, rng)
+            keys[rng.random(length) < dropped] = -1
+            idx, rank = hash_rank(_items_tensor(items.view(np.uint32), device), cfg)
+            streams.append((torch.from_numpy(keys).to(device), idx, rank))
+        preset = torch.from_numpy(rng.integers(0, 20, (b_rows, cfg.m), dtype=np.uint8)).to(device)
+        steady = bank_scatter_max_plain(torch.zeros_like(preset), *streams[0])
+        chosen = bank_module.bank_scatter_path(b_rows, cfg.m, length, _sms(device))
+        for state, bank in (("preset", preset), ("steady", steady)):
+            for path in ("global", "tiled"):
+                fn = getattr(bank_module, f"bank_scatter_max_{path}")
+                times[f"bank_scatter_max {path} path, {name} ({b_rows}, {cfg.m}) n={length}, {state} bank"
+                      f"{' (chosen)' if path == chosen else ''}"] = _time_ms(lambda *a: fn(bank, *a), streams)[0]
+        del preset, steady, streams
+    return times
 
 
 def _device_entries(averages) -> list:
@@ -1615,7 +1762,8 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     three-fragment merge and the estimator), one count-min tick
     (``CountMinBank.update_many`` of n Zipf-keyed items into the (1024, 4,
     1024) bank), its Topkapi label vote alone, its ``cm_scatter_add`` alone
-    (the tiled kernel's passes), one full-window
+    (the tiled kernel's passes), the bank tick's ``bank_scatter_max`` alone,
+    one full-window
     ``fold_window()`` of the 3 GiB (64, 1024, 4, 1024) count-min ring, one
     full-width RWKV6-3B ``engine.prefill`` of 8 x 1024 tokens, or one
     ``engine.decode_step`` of the 8 requests after it; ``only`` (step
@@ -1640,6 +1788,7 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     # same filled state
     sk = HyperLogLog.empty(cfg, device).update(chunk, plan)
     bank = SketchBank.empty(rows, cfg, device).update_many(k_t, x_t, plan)
+    b_idx, b_rank = hash_rank(x_t, cfg)
     hcfg = HLLConfig(p=12, hash_bits=64)
     hkeys, hitems = _zipf_traffic(hybrid_rows, HYBRID_ITEMS_PER_ROW * hybrid_rows, rng)
     hk = torch.from_numpy(hkeys).to(device).tensor_split(HYBRID_CHUNKS)
@@ -1669,6 +1818,8 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     steps_fn = {
         "stream": lambda: sk.update(chunk, plan),
         "bank": lambda: bank.update_many(k_t, x_t, plan),
+        # the bank tick's kernel alone (the tiled kernel's passes)
+        "bank_scatter_max": lambda: bank_scatter_max(bank.registers, k_t, b_idx, b_rank),
         "hybrid": lambda: hyb.update_many(hk[-1], hx[-1], plan).compact(),
         # advance_to(current epoch) is a new instance with the decomposition
         # threaded and an empty fold cache: the steady full-window read
@@ -1781,15 +1932,21 @@ def main() -> int:
     _timed(phase_build)
     errs = _timed(phase_kernels, device)
     # the main paths' shapes take the redesigned kernels: the tiled count-min
-    # path (a tick, a ring epoch) and one register file an SM
+    # path (a tick, a ring epoch), two register files an SM, the tiled bank
+    # path at the bank tick
     cmc = CMConfig(CM_DEPTH, CM_WIDTH)
     paths = {"countmin tick": _cm_path(CM_ROWS, cmc, CM_TICK_ITEMS, device),
              "cm_window epoch": _cm_path(CM_ROWS, cmc, WINDOW_EPOCH_ITEMS, device)}
     files = {"stream chunk": hll_module.hll_partials(STREAM_CHUNK_ITEMS, 16, _sms(device)),
              "pipelined chunk": hll_module.hll_partials(STREAM_CHUNK_ITEMS // PIPELINES, 16, _sms(device))}
-    print(f"[main path] cm_scatter_add paths {paths}; hll_update_fused register files at p = 16 {files}")
+    bank_paths = {name: bank_module.bank_scatter_path(b_rows, 1 << p, length, _sms(device))
+                  for name, (b_rows, p, length, _) in bank_callers().items()}
+    print(f"[main path] cm_scatter_add paths {paths}; hll_update_fused register files at p = 16 {files}; "
+          f"bank_scatter_max paths {bank_paths}")
     if set(paths.values()) != {"tiled"}:
         raise AssertionError(f"the count-min main path does not take the tiled cm_scatter_add: {paths}")
+    if bank_paths["bank tick"] != "tiled":
+        raise AssertionError(f"the bank tick does not take the tiled bank_scatter_max: {bank_paths}")
 
     reset_launches()
     stream = _timed(phase_stream, device)

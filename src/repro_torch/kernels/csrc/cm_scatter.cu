@@ -102,13 +102,6 @@ __device__ __forceinline__ uint32_t lane_mask_lt() {
   return (1u << (threadIdx.x & 31)) - 1u;
 }
 
-// The units of a tile with `total` items: one per unit_items, at least one,
-// at most one a slice.
-__device__ __forceinline__ int unit_count(int total, int slices, int unit_items) {
-  const int u = (total + unit_items - 1) / unit_items;
-  return u < 1 ? 1 : (u > slices ? slices : u);
-}
-
 // Apply f(key, item) to every item of [lo, hi) (lo a multiple of 4; common.cuh's
 // loader, two quads of each array in flight where vec), item 0 where kItems
 // is false.  Lanes past the end see key -1, and the whole block takes the
@@ -209,10 +202,7 @@ cm_plan_kernel(const int32_t* __restrict__ tile_total, int tiles, int slices, in
                int32_t* __restrict__ extra_start) {
   extern __shared__ int32_t extra[];  // tiles + 1
   __shared__ int32_t spare[32];
-  for (int t = threadIdx.x; t <= tiles; t += blockDim.x)
-    extra[t] = t < tiles ? unit_count(tile_total[t], slices, unit_items) - 1 : 0;
-  repro::block_scan(extra, tiles + 1, spare);  // syncs
-  for (int t = threadIdx.x; t <= tiles; t += blockDim.x) extra_start[t] = extra[t];
+  repro::plan_extra_units(tile_total, tiles, slices, unit_items, extra_start, extra, spare);
 }
 
 // 3. one block per unit (tile t, unit j, the group of slices
@@ -234,19 +224,10 @@ cm_tile_kernel(const uint32_t* __restrict__ counters, uint32_t* out, CmPlan p, i
   if (!kExtra) {
     t = blockIdx.x;
     j = 0;
-  } else {
-    const int b = blockIdx.x;
-    if (b >= extra_start[p.tiles]) return;
-    int a = 0, c = p.tiles;  // the tile with extra_start[t] <= b < extra_start[t + 1]
-    while (c - a > 1) {
-      const int mid = (a + c) >> 1;
-      if (extra_start[mid] <= b) a = mid;
-      else c = mid;
-    }
-    t = a;
-    j = b - extra_start[t] + 1;
+  } else if (!repro::extra_unit(extra_start, p.tiles, blockIdx.x, &t, &j)) {
+    return;
   }
-  const int units = unit_count(tile_total[t], slices, unit_items);
+  const int units = repro::unit_count(tile_total[t], slices, unit_items);
   const int s0 = static_cast<int>(static_cast<long long>(j) * slices / units);
   const int group = static_cast<int>(static_cast<long long>(j + 1) * slices / units) - s0;
   const int first_row = t << p.tile_shift;
@@ -262,60 +243,31 @@ cm_tile_kernel(const uint32_t* __restrict__ counters, uint32_t* out, CmPlan p, i
   } else {
     for (int i = threadIdx.x; i < count; i += blockDim.x) tile[i] = 0u;
   }
-  for (int s = threadIdx.x; s < group; s += blockDim.x) {
-    const int32_t* o = offsets + static_cast<long long>(s0 + s) * (p.tiles + 1) + t;
-    seg_lo[s] = o[0];
-    seg_pre[s] = o[1] - o[0];
-  }
-  const int entries = repro::block_scan(seg_pre, group, spare);  // syncs
-  if (threadIdx.x == 0) seg_pre[group] = entries;
-  __syncthreads();
+  const int entries = repro::load_segments(offsets, p.tiles, t, s0, group, seg_pre, seg_lo, spare);  // syncs
   const uint32_t w = p.width;
-  // a warp takes 128 consecutive entries, 4 a lane: one binary search for
-  // the first one's segment, then each lane walks on to its own (segments
-  // are mostly longer than 32), loads its four items and lands their hits
-  const int lane = threadIdx.x & 31;
-  constexpr int kPerLane = 4;
+  // each item's d hits, four items a lane loaded at once (common.cuh)
   using Word = typename std::conditional<kWide, uint64_t, uint32_t>::type;
-  const Word* words = reinterpret_cast<const Word*>(packed);
-  for (int first = (threadIdx.x - lane) * kPerLane; first < entries; first += blockDim.x * kPerLane) {
-    int a = 0, c = group;  // the segment with seg_pre[a] <= first < seg_pre[a + 1]
-    while (c - a > 1) {
-      const int mid = (a + c) >> 1;
-      if (seg_pre[mid] <= first) a = mid;
-      else c = mid;
+  repro::for_each_entry(reinterpret_cast<const Word*>(packed), per, s0, group, seg_pre, seg_lo, entries,
+                        [&](Word x) {
+    uint32_t row, lo, hi;
+    if (kWide) {
+      row = static_cast<uint32_t>(static_cast<uint64_t>(x) >> 32);
+      const uint64_t h = repro::murmur3_64(static_cast<uint32_t>(x), p.seed);
+      lo = static_cast<uint32_t>(h);
+      hi = static_cast<uint32_t>(h >> 32);
+    } else {
+      const uint32_t v = static_cast<uint32_t>(x);
+      const uint32_t kb = static_cast<uint32_t>(p.log2_width);
+      row = v >> (2 * kb);
+      hi = (v >> kb) & (w - 1u);
+      lo = v & (w - 1u);
     }
-    Word x[kPerLane];
-#pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int e = first + lane + 32 * k;
-      if (e >= entries) break;
-      while (seg_pre[a + 1] <= e) ++a;
-      x[k] = words[static_cast<long long>(s0 + a) * per + seg_lo[a] + e - seg_pre[a]];
+    uint32_t* cell = tile + row * static_cast<uint32_t>(p.cells);  // row < 2^tile_shift
+    for (int r = 0; r < p.depth; ++r) {
+      const uint32_t mixed = lo + static_cast<uint32_t>(r) * hi;
+      atomicAdd(cell + r * w + (kWide ? mixed % w : mixed & (w - 1u)), 1u);
     }
-#pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      if (first + lane + 32 * k >= entries) break;
-      uint32_t row, lo, hi;
-      if (kWide) {
-        row = static_cast<uint32_t>(static_cast<uint64_t>(x[k]) >> 32);
-        const uint64_t h = repro::murmur3_64(static_cast<uint32_t>(x[k]), p.seed);
-        lo = static_cast<uint32_t>(h);
-        hi = static_cast<uint32_t>(h >> 32);
-      } else {
-        const uint32_t v = static_cast<uint32_t>(x[k]);
-        const uint32_t kb = static_cast<uint32_t>(p.log2_width);
-        row = v >> (2 * kb);
-        hi = (v >> kb) & (w - 1u);
-        lo = v & (w - 1u);
-      }
-      uint32_t* cell = tile + row * static_cast<uint32_t>(p.cells);  // row < 2^tile_shift
-      for (int r = 0; r < p.depth; ++r) {
-        const uint32_t mixed = lo + static_cast<uint32_t>(r) * hi;
-        atomicAdd(cell + r * w + (kWide ? mixed % w : mixed & (w - 1u)), 1u);
-      }
-    }
-  }
+  });
   __syncthreads();
   if (!kExtra) {
     if (vec) {

@@ -1,7 +1,7 @@
 // Pieces every kernel library shares: the uint8 register max, the stream
-// loader and the shared block scan of the tiled kernels, the dynamic
-// shared-memory opt-in, and the plain C error interface the ctypes
-// bindings read.
+// loader, the shared block scan, the work-unit plan and the segment gather
+// of the tiled kernels, the dynamic shared-memory opt-in, and the plain C
+// error interface the ctypes bindings read.
 #pragma once
 
 #include <climits>
@@ -82,18 +82,18 @@ __device__ __forceinline__ void apply(F& f, const int32_t (&v)[3]) { f(v[0], v[1
 // read: the others, and every array past the end, give none[k].  The whole
 // block takes the same number of turns, so a warp's lanes stay together
 // for a warp match in f.  Where every array is 16-byte aligned (vec) a
-// thread loads two quads of each at once, so eight items are in flight: a
-// pass that waits on one 4-byte load a turn is latency-bound.
-template <int K, typename F>
+// thread loads kQuads quads of each at once, so 4 * kQuads items are in
+// flight: a pass that waits on one 4-byte load a turn is latency-bound.
+template <int K, int kQuads = 2, typename F>
 __device__ __forceinline__ void for_each_quad(const int32_t* const* src, const int32_t* none, int loaded,
                                               long long lo, long long hi, bool vec, F&& f) {
   long long tail = lo;
   if (vec) {
     const long long q_lo = lo / 4, q_hi = hi / 4;
-    for (long long q0 = q_lo; q0 < q_hi; q0 += 2 * blockDim.x) {
-      int4 x[2][K];
+    for (long long q0 = q_lo; q0 < q_hi; q0 += kQuads * blockDim.x) {
+      int4 x[kQuads][K];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < kQuads; ++h) {
         const long long q = q0 + threadIdx.x + h * blockDim.x;
 #pragma unroll
         for (int k = 0; k < K; ++k)
@@ -101,7 +101,7 @@ __device__ __forceinline__ void for_each_quad(const int32_t* const* src, const i
                                           : make_int4(none[k], none[k], none[k], none[k]);
       }
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < kQuads; ++h)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           int32_t v[K];
@@ -118,6 +118,94 @@ __device__ __forceinline__ void for_each_quad(const int32_t* const* src, const i
 #pragma unroll
     for (int k = 0; k < K; ++k) v[k] = k < loaded && i < hi ? src[k][i] : none[k];
     detail::apply(f, v);
+  }
+}
+
+// The work units of a tile with `total` items: one per unit_items, at least
+// one, at most one a slice.  Unit j of u takes the slices
+// [j * slices / u, (j + 1) * slices / u).
+__device__ __forceinline__ int unit_count(int total, int slices, int unit_items) {
+  const int u = (total + unit_items - 1) / unit_items;
+  return u < 1 ? 1 : (u > slices ? slices : u);
+}
+
+// The plan pass of a tiled scatter, by one whole block: extra_start[t] = the
+// exclusive scan over tiles of (units of tile t) - 1, extra_start[tiles] =
+// the extra units in all.  `extra` is tiles + 1 ints of shared memory.
+__device__ __forceinline__ void plan_extra_units(const int32_t* __restrict__ tile_total, int tiles, int slices,
+                                                 int unit_items, int32_t* __restrict__ extra_start,
+                                                 int32_t* extra, int32_t* spare) {
+  for (int t = threadIdx.x; t <= tiles; t += blockDim.x)
+    extra[t] = t < tiles ? unit_count(tile_total[t], slices, unit_items) - 1 : 0;
+  block_scan(extra, tiles + 1, spare);  // syncs
+  for (int t = threadIdx.x; t <= tiles; t += blockDim.x) extra_start[t] = extra[t];
+}
+
+// The e-th extra unit of a tiled scatter: its tile t and unit j >= 1 in
+// the tile, found in extra_start (plan_extra_units); false where e is past
+// the last.
+__device__ __forceinline__ bool extra_unit(const int32_t* __restrict__ extra_start, int tiles, int e, int* t,
+                                           int* j) {
+  if (e >= extra_start[tiles]) return false;
+  int a = 0, c = tiles;  // the tile with extra_start[t] <= e < extra_start[t + 1]
+  while (c - a > 1) {
+    const int mid = (a + c) >> 1;
+    if (extra_start[mid] <= e) a = mid;
+    else c = mid;
+  }
+  *t = a;
+  *j = e - extra_start[a] + 1;
+  return true;
+}
+
+// A tile block's gather of its tile's segment of every slice of its group
+// [s0, s0 + group): seg_lo[s] where the segment starts in its slice's
+// region, seg_pre[0 .. group] where it starts in the gather (exclusive
+// scan; group + 1 and group ints of shared memory).  Returns the entries in
+// all; syncs.
+__device__ __forceinline__ int load_segments(const int32_t* __restrict__ offsets, int tiles, int t, int s0,
+                                             int group, int32_t* seg_pre, int32_t* seg_lo, int32_t* spare) {
+  for (int s = threadIdx.x; s < group; s += blockDim.x) {
+    const int32_t* o = offsets + static_cast<long long>(s0 + s) * (tiles + 1) + t;
+    seg_lo[s] = o[0];
+    seg_pre[s] = o[1] - o[0];
+  }
+  const int entries = block_scan(seg_pre, group, spare);  // syncs
+  if (threadIdx.x == 0) seg_pre[group] = entries;
+  __syncthreads();
+  return entries;
+}
+
+// Apply f(word) to every gathered entry (load_segments) of a tile, slice
+// s's region starting at word s * per of `words`.  A warp takes 32 *
+// kPerLane consecutive entries, kPerLane a lane: one binary search for the
+// first one's segment, then each lane walks on to its own (segments are
+// mostly longer than 32) and loads its kPerLane words before f sees any.
+template <int kPerLane = 4, typename Word, typename F>
+__device__ __forceinline__ void for_each_entry(const Word* __restrict__ words, int per, int s0, int group,
+                                               const int32_t* seg_pre, const int32_t* seg_lo, int entries,
+                                               F&& f) {
+  const int lane = threadIdx.x & 31;
+  for (int first = (threadIdx.x - lane) * kPerLane; first < entries; first += blockDim.x * kPerLane) {
+    int a = 0, c = group;  // the segment with seg_pre[a] <= first < seg_pre[a + 1]
+    while (c - a > 1) {
+      const int mid = (a + c) >> 1;
+      if (seg_pre[mid] <= first) a = mid;
+      else c = mid;
+    }
+    Word x[kPerLane];
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int e = first + lane + 32 * k;
+      if (e >= entries) break;
+      while (seg_pre[a + 1] <= e) ++a;
+      x[k] = words[static_cast<long long>(s0 + a) * per + seg_lo[a] + e - seg_pre[a]];
+    }
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      if (first + lane + 32 * k >= entries) break;
+      f(x[k]);
+    }
   }
 }
 

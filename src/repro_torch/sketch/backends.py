@@ -228,9 +228,13 @@ def bank_update(
 ) -> torch.Tensor:
     """Kernel bank ingest: the hash_rank kernel, then the bank_scatter kernel.
 
-    The scatter kernel drops out-of-range keys itself (the §9 drop rule);
-    the reference's ``row_block`` tiling has no counterpart, since the
-    kernel raises any cell of (a copy of) the whole bank with atomics.
+    The scatter kernel drops out-of-range keys itself (the §9 drop rule).
+    The reference's ``row_block`` tiling has a counterpart of its own: a
+    large bank is cut into tiles of whole rows held in shared memory and
+    the stream partitioned by tile, every register written once; a bank
+    that stays in L2, or a short stream, takes the global path, byte
+    compare-and-swaps into a copy of the bank
+    (``bank_scatter.bank_scatter_path``).
     """
     _check_cell_space(registers)
     _, _, _, _bank = _kernels()

@@ -21,18 +21,22 @@ or the reference's jnp path at p = 16:
                     the Pallas kernel in interpret mode, within rtol 1e-5
                     and atol 1e-4 (float32 sums in another order).
 
-The launch plans of the two tiled kernels are pure functions, tested here:
-``cm_tile_plan`` / ``cm_scatter_path`` (every row in one tile or on the
-global path) and the units a tile is split into (every slice in one
-unit; ``_cm_unit_split`` here, as the CUDA plan kernel counts them), and
-``hll_partials`` (the register files a stream gets).  Plain-torch
-emulations of both decompositions -- cm: partition by tile, 32-bit packing,
-split tiles' partials summed mod 2^32; hll: the files each item lands in,
-their column max with the input registers -- are held bit for bit to the
-plain versions and to the reference.
+The launch plans of the tiled kernels are pure functions, tested here:
+``cm_tile_plan`` / ``cm_scatter_path`` and ``bank_tile_plan`` /
+``bank_scatter_path`` (every row in one tile or on the global path, and
+the bank's measured path rule at its callers' shapes), the units a tile
+is split into (every slice in one unit; ``_unit_split`` here, as the CUDA
+plan kernels count them), and ``hll_partials`` (the register files a
+stream gets).  Plain-torch emulations of the decompositions -- cm:
+partition by tile, 32-bit packing, split tiles' partials summed mod 2^32;
+bank: partition by tile, (cell in tile << 8 | rank) packing, split tiles'
+partials raised by max; hll: the files each item lands in, their column
+max with the input registers -- are held bit for bit to the plain versions
+and to the reference.
 
 The ``gpu`` tests hold each CUDA kernel to its plain version on the card,
-and the tiled kernels also on adversarial streams.
+the tiled kernels also on adversarial streams (the bank's on both paths),
+and ``bucket_fold`` on ragged shapes.
 """
 
 import numpy as np
@@ -279,6 +283,155 @@ def test_bank_scatter_max_drops_foreign_keys_without_trace():
     assert int(bank.sum()) == 0  # functional: the input bank is untouched
 
 
+@pytest.mark.parametrize("rows", [1, 37, 1023, 1024])
+@pytest.mark.parametrize("p", [4, 8, 12, 16])
+def test_bank_tile_plan_covers_every_row_once(p, rows):
+    m = 1 << p
+    plan = bank_scatter.bank_tile_plan(rows, m)
+    assert not plan.global_path
+    # whole rows, the most a power of two of them that fit 2^16 bytes:
+    # one row at p = 16, 16 at p = 12, 4096 at p = 4
+    per = plan.rows_per_tile
+    assert per & (per - 1) == 0 and per * m == bank_scatter.TILE_BYTES
+    spans = [plan.rows_of(t) for t in range(plan.tiles)]
+    # back to back from row 0 to B: every row in exactly one tile
+    assert spans[0][0] == 0 and spans[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(hi - lo == per for lo, hi in spans[:-1])
+    assert 0 < spans[-1][1] - spans[-1][0] <= per
+    # a packed entry, (cell in tile) << 8 | rank, fits 32 bits (24 in fact)
+    assert (per * m - 1) << 8 | 255 < 1 << 24
+
+
+def test_bank_tile_plan_limits_and_path_rule():
+    path = bank_scatter.bank_scatter_path
+    # the callers' shapes: SketchBank.update_many's tick takes the tiled
+    # path; a WindowedBank epoch, the telemetry board's flush and
+    # HybridBank's dense block (1-6.5 MiB banks, L2-resident) the global one
+    assert bank_scatter.bank_tile_plan(1024, 1 << 16).tiles == 1024
+    assert path(1024, 1 << 16, 1 << 22, 132) == "tiled"
+    assert path(1024, 1 << 12, 1 << 20, 132) == "global"
+    assert path(256, 1 << 12, 1 << 20, 132) == "global"
+    assert path(1638, 1 << 12, 909_312, 132) == "global"
+    # the measured limits: a bank of at least 32 MiB fed at least 2^21 entries
+    assert path(512, 1 << 16, 1 << 22, 132) == "tiled"
+    assert path(511, 1 << 16, 1 << 22, 132) == "global"
+    assert path(1024, 1 << 16, 1 << 21, 132) == "tiled"
+    assert path(1024, 1 << 16, (1 << 21) - 1, 132) == "global"
+    # 2^25 + 5 entries: 2048 slices, still tiled; 2^27: 8192 slices, global
+    assert path(1024, 1 << 16, (1 << 25) + 5, 132) == "tiled"
+    assert bank_scatter.tiled_fits(1024, 1 << 16, (1 << 25) + 5, 132)
+    assert not bank_scatter.tiled_fits(1024, 1 << 16, 1 << 27, 132)
+    assert path(1024, 1 << 16, 1 << 27, 132) == "global"
+    # the tiled limits: m past a tile, m not a multiple of 16, more tiles
+    # than a histogram holds; every bank here is past 32 MiB
+    for rows, m in ((256, 1 << 17), (1 << 21, 20), (1 << 16, 1000), ((bank_scatter.HIST_TILES + 1) * 16, 1 << 12)):
+        assert bank_scatter.bank_tile_plan(rows, m).global_path
+        assert not bank_scatter.tiled_fits(rows, m, 1 << 22, 132)
+        assert path(rows, m, 1 << 22, 132) == "global"
+    assert not bank_scatter.bank_tile_plan(bank_scatter.HIST_TILES * 16, 1 << 12).global_path
+    assert path(bank_scatter.HIST_TILES * 16, 1 << 12, 1 << 22, 132) == "tiled"
+    # an offsets scratch past 2^24 entries: 2^14 tiles x 2048 slices
+    assert not bank_scatter.tiled_fits(bank_scatter.HIST_TILES, 1 << 16, 1 << 25, 132)
+    assert path(bank_scatter.HIST_TILES, 1 << 16, 1 << 25, 132) == "global"
+    # small shapes fit the tiled limits (the gpu tests run both paths there)
+    assert bank_scatter.tiled_fits(1, 1 << 16, 1, 132) and bank_scatter.tiled_fits(1023, 16, 127, 132)
+
+
+def _bank_tiled_emulation(registers, keys, idx, rank, sms, unit_items):
+    """The tiled kernel's decomposition in plain torch: slices sorted by
+    tile, each valid entry packed as (cell in tile) << 8 | rank in 32 bits,
+    each tile's units over their groups of slices (the first from the
+    tile's registers, stored; the others from zero, raising the stored tile
+    by a per-byte max).  Returns (uint8 bank, the units' sizes)."""
+    rows, m = registers.shape
+    plan = bank_scatter.bank_tile_plan(rows, m)
+    assert not plan.global_path
+    keys, idx, rank = (t.to(torch.int64) for t in (keys, idx, rank))
+    n = keys.numel()
+    per, slices = sparse_scatter.stream_split(n, sms)
+    valid = (keys >= 0) & (keys < rows) & (idx >= 0) & (idx < m) & (rank >= 1) & (rank <= 255)
+    tile = torch.where(valid, keys // plan.rows_per_tile, -1)
+    segments = []  # per slice: {tile: its packed entries}
+    for s in range(slices):
+        part = torch.arange(s * per, min(n, (s + 1) * per))
+        part = part[valid[part]]
+        part = part[torch.argsort(tile[part], stable=True)]
+        cell = (keys[part] - tile[part] * plan.rows_per_tile) * m + idx[part]
+        assert not bool((cell >= 1 << 16).any())
+        packed = (cell << 8) | rank[part]
+        segments.append({int(t): packed[tile[part] == t] for t in tile[part].unique()})
+    out = registers.to(torch.int64).clone()
+    sizes = []
+    for t in range(plan.tiles):
+        lo, hi = plan.rows_of(t)
+        total = sum(len(seg[t]) for seg in segments if t in seg)
+        stored = None
+        for j, (s0, s1) in enumerate(_unit_split(total, slices, unit_items)):
+            partial = out[lo:hi].reshape(-1).clone() if j == 0 else torch.zeros((hi - lo) * m, dtype=torch.int64)
+            size = 0
+            for seg in segments[s0:s1]:
+                if t in seg:
+                    partial.scatter_reduce_(0, seg[t] >> 8, seg[t] & 255, "amax")
+                    size += len(seg[t])
+            stored = partial if j == 0 else torch.maximum(stored, partial)
+            sizes.append(size)
+        out[lo:hi] = stored.reshape(hi - lo, m)
+    assert sum(sizes) == int(valid.sum())  # every valid entry in exactly one unit
+    return out.to(torch.uint8), sizes
+
+
+@pytest.mark.parametrize("p,rows,n,sms,unit_items", [
+    (16, 3, 5000, 2, 64),      # one row a tile, a hot row split into units
+    (16, 1, 3000, 4, 100),     # B = 1: one tile
+    (12, 37, 4096, 2, 128),    # 16 rows a tile, the last tile ragged
+    (8, 300, 6144, 3, 500),    # 256 rows a tile
+    (4, 1023, 5120, 2, 200),   # the whole bank in one tile
+])
+@pytest.mark.parametrize("hash_bits", [32, 64])
+def test_bank_tiled_decomposition_matches_plain_and_reference(p, rows, n, sms, unit_items, hash_bits):
+    cfg = HLLConfig(p=p, hash_bits=hash_bits)
+    keys, idx, rank, items = _keyed_stream(n, rows, cfg, p + rows)
+    keys[n // 2:: 3] = rows // 2  # a hot row, so that one tile is split into several units
+    if p > 12:  # the jnp oracle hashes the items itself: no rank-0 padding
+        idx, rank = (t.numpy() for t in hll.hash_index_rank(_t(items), cfg))
+    bank = np.stack([_registers(cfg, r) for r in range(rows)])
+    args = [torch.from_numpy(a) for a in (bank, keys, idx, rank)]
+    got, sizes = _bank_tiled_emulation(*args, sms, unit_items)
+    assert len(sizes) > bank_scatter.bank_tile_plan(rows, cfg.m).tiles  # some tile was split
+    np.testing.assert_array_equal(got.numpy(), bank_scatter.bank_scatter_max_plain(*args).numpy())
+    if p <= 12:
+        # the Pallas kernel in interpret mode, a block of whole rows of at
+        # most 4096 cells (its VMEM cap)
+        row_block = max(r for r in range(1, rows + 1) if rows % r == 0 and r * cfg.m <= 4096)
+        want = ref_bank_scatter.bank_scatter_max(
+            jnp.asarray(bank.astype(np.int32)), *(jnp.asarray(a).reshape(-1, LANES) for a in (keys, idx, rank)),
+            m=cfg.m, row_block=row_block, interpret=True)
+    else:
+        want = bank_update_jnp(jnp.asarray(bank), jnp.asarray(keys), jnp.asarray(items),
+                               RefConfig(p=p, hash_bits=hash_bits))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.uint8))
+
+
+def test_bank_tiled_decomposition_drops_like_plain():
+    # keys -1, B and 2^31 - 1, buckets -1 and m, ranks 0 and 256: no-ops
+    rows, m, n = 5, 1 << 12, 4000
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, rows, n).astype(np.int32)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    rank = rng.integers(1, 256, n).astype(np.int32)
+    keys[0::8], idx[1::8], rank[2::8] = -1, -1, 0
+    keys[3::8], idx[4::8], rank[5::8] = rows, m, 256
+    keys[6::8] = 2**31 - 1  # one entry in 8 (the last) lands
+    bank = torch.from_numpy(rng.integers(0, 30, (rows, m)).astype(np.uint8))
+    args = [bank] + [torch.from_numpy(a) for a in (keys, idx, rank)]
+    got, sizes = _bank_tiled_emulation(*args, 2, 64)
+    assert sum(sizes) == n // 8
+    torch.testing.assert_close(got, bank_scatter.bank_scatter_max_plain(*args), rtol=0, atol=0)
+    landed = bank_scatter.bank_scatter_max_plain(bank, *(torch.from_numpy(a[7::8]) for a in (keys, idx, rank)))
+    torch.testing.assert_close(got, landed, rtol=0, atol=0)
+
+
 # ----------------------------------------------------------------------------
 # sparse_scatter_coo
 # ----------------------------------------------------------------------------
@@ -490,11 +643,12 @@ def test_cm_window_fold_sum_wide_matches_reference_jnp_fold():
 CM_PLAN_CONFIGS = [(d, w) for d in (1, 4, 16) for w in (1, 1000, 1024, 1 << 16)]  # chip_smoke's kernels phase
 
 
-def _cm_unit_split(total, slices, unit_items=cm_scatter.UNIT_ITEMS):
+def _unit_split(total, slices, unit_items=cm_scatter.UNIT_ITEMS):
     """The work units of a tile with ``total`` items over ``slices`` slices,
-    as cm_scatter.cu's plan kernel counts them (``unit_count``):
-    ceil(total / unit_items), at least 1, at most one a slice; unit j takes
-    the slices [j * slices // u, (j + 1) * slices // u)."""
+    as the plan kernels of cm_scatter.cu and bank_scatter.cu count them
+    (common.cuh's ``unit_count``): ceil(total / unit_items), at least 1, at
+    most one a slice; unit j takes the slices [j * slices // u,
+    (j + 1) * slices // u)."""
     units = min(slices, max(1, -(-total // unit_items)))
     return [(j * slices // units, (j + 1) * slices // units) for j in range(units)]
 
@@ -545,7 +699,7 @@ def test_cm_tile_plan_main_shape_and_global_paths():
 @pytest.mark.parametrize("total,slices", [(0, 264), (1, 264), (8192, 264), (8193, 264), (1_823_276, 264),
                                           (1 << 22, 264), (50_000, 1), (50_000, 3), (40_000, 7)])
 def test_cm_unit_split_covers_every_slice_once(total, slices):
-    units = _cm_unit_split(total, slices)
+    units = _unit_split(total, slices)
     want = min(slices, max(1, -(-total // cm_scatter.UNIT_ITEMS)))
     assert len(units) == want
     # groups of slices back to back: every slice, so every item of the
@@ -596,7 +750,7 @@ def _cm_tiled_emulation(counters, keys, items, cfg, sms, unit_items):
         first, last = plan.rows_of(t)
         total = sum(len(seg[t][0]) for seg in segments if t in seg)
         partials = []
-        for j, (s0, s1) in enumerate(_cm_unit_split(total, slices, unit_items)):
+        for j, (s0, s1) in enumerate(_unit_split(total, slices, unit_items)):
             partial = out[first:last].clone() if j == 0 else torch.zeros_like(out[first:last])
             size = 0
             for seg in segments[s0:s1]:
@@ -809,6 +963,23 @@ def test_bucket_fold_kernel_matches_plain_on_card():
 
 
 @pytest.mark.gpu
+def test_bucket_fold_ragged_shapes_on_card():
+    _need_card()
+    rng = np.random.default_rng(1)
+    cases = [(k, m, np.uint8) for k in (1, 3, 8, 9) for m in (16, 20, 1 << 14, 1 << 16)] + [(5, 1001, np.int32)]
+    for k, m, dtype in cases:
+        hi = 62 if dtype == np.uint8 else 2**31 - 1
+        partials = torch.from_numpy(rng.integers(-hi if dtype == np.int32 else 0, hi, (k, m)).astype(dtype)).cuda()
+        torch.testing.assert_close(bucket_fold.bucket_fold(partials), bucket_fold.bucket_fold_plain(partials),
+                                   rtol=0, atol=0, msg=f"({k}, {m}) {dtype}")
+    # rows that start 4 bytes past a 16-byte boundary: the 4-byte columns
+    flat = torch.from_numpy(rng.integers(0, 62, 10 * (1 << 14)).astype(np.uint8)).cuda()
+    view = flat[4: 4 + 9 * (1 << 14)].view(9, 1 << 14)
+    assert view.data_ptr() % 16 == 4
+    torch.testing.assert_close(bucket_fold.bucket_fold(view), bucket_fold.bucket_fold_plain(view), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
 def test_bank_scatter_max_kernel_matches_plain_on_card():
     _need_card()
     cfg = HLLConfig(p=16, hash_bits=64)
@@ -820,6 +991,74 @@ def test_bank_scatter_max_kernel_matches_plain_on_card():
     got = bank_scatter.bank_scatter_max(bank, *args)
     assert bank_scatter.bank_scatter_max.launches == before + 1
     torch.testing.assert_close(got, bank_scatter.bank_scatter_max_plain(bank, *args), rtol=0, atol=0)
+
+
+def _bank_adversarial(n, seed):
+    """bank_scatter_max's hard streams, {name: (rows, m, keys, idx, rank)}."""
+    rng = np.random.default_rng(seed)
+    m = 1 << 16
+    keys = rng.integers(0, 1024, n).astype(np.int32)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    rank = rng.integers(1, 40, n).astype(np.int32)
+    dropped_keys = keys.copy()
+    dropped_keys[0::4], dropped_keys[1::4], dropped_keys[2::4] = -1, 1024, 2**31 - 1
+    dropped_idx = idx.copy()
+    dropped_idx[0::3], dropped_idx[1::3] = -1, m
+    dropped_rank = rank.copy()
+    dropped_rank[0::3], dropped_rank[1::3] = 0, 256
+    return {
+        # every entry on one key (one tile split into ~n / 8192 units), and
+        # on one cell
+        "one key": (1024, m, np.zeros(n, np.int32), idx, rank),
+        "one cell": (1024, m, np.full(n, 517, np.int32), np.full(n, m - 1, np.int32), rank),
+        "B=1": (1, m, np.where(keys % 5 == 0, 1, 0).astype(np.int32), idx, rank),  # key 1 dropped
+        "B=1023": (1023, m, keys, idx, rank),  # key 1023 dropped
+        "p=4": (1024, 16, keys, idx % 16, rank),  # the whole bank in one tile
+        "dropped keys": (1024, m, dropped_keys, idx, rank),
+        "dropped buckets": (1024, m, keys, dropped_idx, rank),
+        "dropped ranks": (1024, m, keys, idx, dropped_rank),
+        "p=12": (1024, 1 << 12, keys, idx % (1 << 12), rank),
+    }
+
+
+@pytest.mark.gpu
+def test_bank_scatter_max_adversarial_streams_on_card():
+    _need_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = (1 << 22) + 3
+    cases = _bank_adversarial(n, 13)
+    short = cases["B=1023"]
+    for length in (0, 1, 127):
+        cases[f"n={length}"] = (short[0], short[1], *(a[:length] for a in short[2:]))
+    many = (1 << 25) + 5  # 2048 slices
+    rng = np.random.default_rng(14)
+    cases["many slices"] = (1024, 1 << 16, ((rng.zipf(1.2, many) - 1) % 1024).astype(np.int32),
+                            rng.integers(0, 1 << 16, many).astype(np.int32), rng.integers(1, 30, many).astype(np.int32))
+    # plans past the tiled limits: m past a tile, m not a multiple of 16
+    cases["m=2^17"] = (8, 1 << 17, short[2] % 9, short[3] * 2, short[4])  # key 8 dropped
+    cases["m=20"] = (64, 20, short[2] % 65, short[3] % 21, short[4])
+    gen = np.random.default_rng(15)
+    for name, (rows, m, keys, idx, rank) in cases.items():
+        bank = torch.from_numpy(gen.integers(0, 20, (rows, m)).astype(np.uint8)).cuda()
+        before = bank.clone()
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (keys, idx, rank)]
+        want = bank_scatter.bank_scatter_max_plain(bank, *args)
+        fits = bank_scatter.tiled_fits(rows, m, len(keys), sms)
+        assert fits == (not name.startswith("m=")), name
+        if not fits:
+            assert bank_scatter.bank_scatter_path(rows, m, len(keys), sms) == "global", name
+        count = bank_scatter.bank_scatter_max.launches
+        torch.testing.assert_close(bank_scatter.bank_scatter_max(bank, *args), want, rtol=0, atol=0, msg=name)
+        assert bank_scatter.bank_scatter_max.launches == count + (len(keys) > 0), name
+        # both paths, where the tiled one's limits allow it
+        torch.testing.assert_close(bank_scatter.bank_scatter_max_global(bank, *args), want, rtol=0, atol=0, msg=name)
+        if fits:
+            torch.testing.assert_close(bank_scatter.bank_scatter_max_tiled(bank, *args), want, rtol=0, atol=0,
+                                       msg=name)
+        else:
+            with pytest.raises(ValueError, match="limits"):
+                bank_scatter.bank_scatter_max_tiled(bank, *args)
+        torch.testing.assert_close(bank, before, rtol=0, atol=0, msg=name)  # the input bank is never written
 
 
 @pytest.mark.gpu
