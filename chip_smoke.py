@@ -119,6 +119,29 @@ raises (exit code 1) when it fails:
            of the exact distinct count.  Prints prefill and decode tokens
            per second, peak device memory and rwkv_intra's share of the
            prefill (its device time from the profiler over a prefill).
+  launch   the port's serve launcher, ``repro_torch.launch.serve.main``
+           called in-process as ``--arch rwkv6-3b --full-config --requests 8
+           --prompt-len 1024 --gen-len 32 --report-every 4 --metrics-out
+           build/launch_metrics.json``, under a trace capture written to
+           build/launch_trace.json: the snapshot must count 8 coalescer
+           submits, at least one tick and 8 request reads, window fold-cache
+           hits, and dispatches through the cuda backends only; the trace
+           must hold the prefill, decode and 8 request spans and the
+           dispatch seams; every kernel of LAUNCH_KERNELS must launch.
+           Prints the launcher's own prefill and decode tokens per second,
+           peak device memory and the snapshot's [metrics] line; then runs
+           the launcher once more under the profiler (busy time, idle share
+           against the first run's wall, top device entries).
+  obs      benchmarks/bench_obs.py at the bank tick's shape (SketchBank
+           1024 x p = 16, 2^22 Zipf(1.2)-keyed items): the median wall of
+           update_many (synchronized) over 80 calls an arm, with the
+           instrumentation passed through, disabled, enabled, and enabled
+           under a trace, the arms in turn; the three ratios over
+           passthrough are printed, not gated.  Gated: the synchronizing
+           calls (torch.cuda.set_sync_debug_mode) of one
+           SketchBank.update_many, HyperLogLog.update, HybridBank.update_many
+           with its settling read, and WindowedBank.estimate_window must not
+           grow when metrics and a trace are on.
   timing   each kernel's device time (CUDA events over warm launches
            queued back to back) and host time per call, its bound (the
            larger of bytes over 3.35 TB/s and float32 operations over
@@ -145,7 +168,9 @@ window, countmin, cm_window and board phases (the sketch paths) and read
 just after; the nine sketch kernels must have launched there.  They are
 zeroed again just before the serve phase and read just after; rwkv_intra
 must have launched there, once per layer of every prefill whose prompt a
-chunk divides.  After the kernels phase it checks that the count-min main
+chunk divides.  They are zeroed once more just before the launch phase's
+run and read just after it; every kernel of LAUNCH_KERNELS must have
+launched there.  After the kernels phase it checks that the count-min main
 path's shapes take the tiled cm_scatter_add, and the bank tick the tiled
 bank_scatter_max.
 Before the last line it prints the kernels' JSON record and the card's
@@ -1469,6 +1494,268 @@ def phase_serve(device, arch=None, requests: int = SERVE_REQUESTS, prompt_len: i
     return result
 
 
+LAUNCH_ARGS = ("--arch", SERVE_ARCH, "--full-config", "--requests", str(SERVE_REQUESTS), "--prompt-len",
+               str(SERVE_PROMPT), "--gen-len", str(SERVE_GEN), "--report-every", "4")
+# the launcher's kernels: the prefill's intra form; the board flush and
+# the window ring's epochs (hash + bank scatter); the hybrid settle (sparse
+# dedup); the heavy-hitter banks (count-min scatter); the window reads
+# (merge of the fold fragments, suffix fold)
+LAUNCH_KERNELS = ("rwkv_intra", "hash_rank", "bank_scatter_max", "sparse_scatter_coo", "cm_scatter_add",
+                  "window_fold_max", "window_merge_max")
+OBS_ROWS, OBS_P, OBS_TICK_ITEMS, OBS_CALLS, OBS_ROUNDS = 1024, 16, 1 << 22, 20, 4
+BUILD = Path("build")
+
+
+def phase_launch(device, args=LAUNCH_ARGS, out_dir: Path = BUILD, kernels=LAUNCH_KERNELS) -> dict:
+    """The port's serve launcher in-process (``repro_torch.launch.serve.main``),
+    RWKV6-3B at full width, with metrics and a trace capture on: its
+    snapshot, trace and launch counts checked; then, on the card, the same
+    run under the profiler for its busy time (the idle share is against
+    the first run's wall)."""
+    import contextlib as _ctx
+    import gc
+    import io
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.obs import metrics, tracing
+    from repro_torch.obs.format import metrics_report_line
+
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    snap_path, trace_path = out_dir / "launch_metrics.json", out_dir / "launch_trace.json"
+    argv = list(args) + ["--metrics-out", str(snap_path), "--device", str(device)]
+    parsed = launcher._parser().parse_args(argv)
+    b, s, t = parsed.requests, parsed.prompt_len, parsed.gen_len
+    printed = io.StringIO()
+    reset_launches()
+    tracing.start_trace()
+    _sync(device)
+    t0 = time.perf_counter()
+    try:
+        with _ctx.redirect_stdout(printed):
+            launcher.main(argv)
+        _sync(device)
+    finally:
+        tracing.stop_trace()
+        metrics.disable()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    tracing.write_trace(str(trace_path))
+    for line in printed.getvalue().splitlines():
+        print(f"[launch] | {line}")
+    snap = json.loads(snap_path.read_text())
+    counters, hists = snap["counters"], snap["histograms"]
+    if counters.get("serve.coalesce.submitted") != b or counters.get("serve.coalesce.ticks", 0) < 1:
+        raise AssertionError(f"coalescer: {counters.get('serve.coalesce.submitted')} submitted, "
+                             f"{counters.get('serve.coalesce.ticks')} ticks for {b} requests")
+    if hists.get("serve.request.seconds", {}).get("count") != b:
+        raise AssertionError(f"serve.request.seconds holds {hists.get('serve.request.seconds')} for {b} requests")
+    if counters.get("window.fold_cache.hits", 0) <= 0:
+        raise AssertionError("the request reads never hit the window fold cache")
+    backends = {k.split(".")[2] for k in counters
+                if k.startswith("dispatch.") and k.endswith(".calls") and not k.startswith("dispatch.estimate.")}
+    if not backends or not backends <= {"cuda", "cuda_pipelined"}:
+        raise AssertionError(f"the launcher dispatched through {sorted(backends)}, not only the cuda backends")
+    events = [e["name"] for e in json.loads(trace_path.read_text())["traceEvents"]]
+    seams = sorted({n for n in events if n.endswith("[cuda]")})
+    if ("serve.prefill" not in events or "serve.decode" not in events
+            or events.count("serve.request") != b or not seams):
+        raise AssertionError(f"trace: {events.count('serve.prefill')} prefill, {events.count('serve.decode')} "
+                             f"decode, {events.count('serve.request')} request spans, seams {seams}")
+    if on_card:
+        missing = [name for name in kernels if launches[name] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the launcher's path: {missing}")
+    prefill_s = hists["serve.prefill.seconds"]["sum"]
+    decode_s = hists["serve.decode.seconds"]["sum"]
+    busy_ms = None
+    if on_card:
+        # the same run once more under the profiler (metrics and trace off):
+        # the card's busy time over the whole launcher, weights drawn included
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.serve.coalesce import SharedWindowRing
+
+        SharedWindowRing.reset()  # the same work as the first run: a new ring
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with _ctx.redirect_stdout(io.StringIO()):
+                launcher.main(list(args) + ["--device", str(device)])
+            _sync(device)
+        entries = _device_entries(prof.key_averages())
+        busy_ms = sum(e.self_device_time_total for e in entries) / 1e3
+        for e in sorted(entries, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"[launch] profile: {e.self_device_time_total / 1e3:.4f} ms x{e.count}  {e.key[:90]}")
+    result = {
+        "wall_s": wall_s, "device_busy_ms": busy_ms,
+        "idle_share": None if busy_ms is None else 1.0 - busy_ms / (wall_s * 1e3),
+        "requests": b, "prompt_len": s, "gen_len": t, "prefill_s": prefill_s, "decode_s": decode_s,
+        "prefill_tokens_per_s": b * s / prefill_s, "decode_tokens_per_s": b * t / decode_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(device) if on_card else None,
+        "launches": {name: launches[name] for name in kernels}, "seams": seams, "trace_events": len(events),
+        "dispatches": {k: v for k, v in counters.items() if k.startswith("dispatch.")},
+    }
+    print(f"[launch] prefill {result['prefill_tokens_per_s']:.6g} tokens/s, decode "
+          f"{result['decode_tokens_per_s']:.6g} tokens/s, peak device memory {result['max_memory_allocated']} "
+          f"bytes; {metrics_report_line(snap)}; {json.dumps(result)}")
+    return result
+
+
+@contextlib.contextmanager
+def _passthrough(planlib, metrics):
+    """No observability code on the bank path: the registry's raw backends
+    swapped in and the call sites' record functions made no-ops (as
+    benchmarks/bench_obs.py's baseline)."""
+    saved = {name: dict(getattr(planlib, name)) for name in ("_BACKENDS", "_BANK_BACKENDS")}
+    record = metrics.inc, metrics.observe
+    try:
+        for name, entries in saved.items():
+            reg = getattr(planlib, name)
+            for key, fn in entries.items():
+                reg[key] = getattr(fn, "__sketch_backend__", fn)
+        metrics.inc = lambda name, value=1: None
+        metrics.observe = lambda name, value: None
+        yield
+    finally:
+        for name, entries in saved.items():
+            reg = getattr(planlib, name)
+            reg.clear()
+            reg.update(entries)
+        metrics.inc, metrics.observe = record
+
+
+@contextlib.contextmanager
+def _obs_on(metrics, tracing):
+    """Metrics on (and a trace capture, given ``tracing``) for the block."""
+    metrics.enable()
+    if tracing is not None:
+        tracing.start_trace()
+    try:
+        yield
+    finally:
+        if tracing is not None:
+            tracing.stop_trace()
+        metrics.disable()
+        metrics.reset()
+
+
+def _sync_calls(fns, on_card: bool):
+    """The fewest synchronizing calls one of ``fns`` (the same work on fresh
+    inputs) makes, counted by PyTorch's sync debug mode (one warning each);
+    the least of several strips a call the caching allocator makes now and
+    then.  None off the card."""
+    import warnings
+
+    counts = []
+    for fn in fns:
+        if not on_card:
+            fn()
+            continue
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        counts.append(sum("synchroniz" in str(w.message) for w in caught))
+    return min(counts) if counts else None
+
+
+def phase_obs(device, rows: int = OBS_ROWS, p: int = OBS_P, tick_items: int = OBS_TICK_ITEMS,
+              calls: int = OBS_CALLS, rounds: int = OBS_ROUNDS, small_rows: int = 1024,
+              small_items: int = 1 << 16, window: int = 8) -> dict:
+    """benchmarks/bench_obs.py on the card at the bank tick's shape: the
+    median wall of ``SketchBank.update_many`` with the instrumentation
+    passed through, disabled (the default), enabled, and enabled under a
+    trace capture (reported, not gated); and the synchronizing calls of the
+    sketch entry points with metrics off and with metrics and a trace on
+    (gated: enabling adds none)."""
+    from repro_torch.obs import metrics, tracing
+    from repro_torch.sketch import plan as planlib
+
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(SEED + 11)
+    keys, items = _zipf_keyed(rows, tick_items, rng)
+    k_t, x_t = torch.from_numpy(keys).to(device), torch.from_numpy(items).to(device)
+    bank = SketchBank.empty(rows, HLLConfig(p=p, hash_bits=64), device)
+    metrics.disable()
+    metrics.reset()
+
+    def tick_s() -> list:
+        out = []
+        for _ in range(calls):
+            _sync(device)
+            t0 = time.perf_counter()
+            bank.update_many(k_t, x_t)
+            _sync(device)
+            out.append(time.perf_counter() - t0)
+        return out
+
+    tick_s()  # warm-up: the kernels' build and first launches
+    arms = {
+        "passthrough": lambda: _passthrough(planlib, metrics),
+        "disabled": contextlib.nullcontext,
+        "enabled": lambda: _obs_on(metrics, None),
+        "traced": lambda: _obs_on(metrics, tracing),
+    }
+    walls = {arm: [] for arm in arms}
+    order = list(arms)
+    for r in range(rounds):
+        # the arms in turn, starting one later each round
+        for arm in order[r % len(order):] + order[:r % len(order)]:
+            with arms[arm]():
+                walls[arm] += tick_s()
+    median_ms = {arm: statistics.median(w) * 1e3 for arm, w in walls.items()}
+    ratios = {arm: median_ms[arm] / median_ms["passthrough"] for arm in ("disabled", "enabled", "traced")}
+
+    # the sketch entry points, each on fresh inputs so every arm does the
+    # same work (no fold or settle cached from an earlier arm)
+    cfg = HLLConfig(p=12, hash_bits=64)
+    hk, hx = _zipf_keyed(small_rows, small_items, rng)
+    hk_t, hx_t = torch.from_numpy(hk).to(device), torch.from_numpy(hx).to(device)
+    ring0 = WindowedBank.empty(window, small_rows, cfg, device)
+    for _ in range(window):
+        ring0 = ring0.observe(hk_t, hx_t).advance()
+    ops = {
+        "SketchBank.update_many": lambda: bank.update_many(k_t, x_t),
+        "HyperLogLog.update": lambda: HyperLogLog.empty(HLLConfig(p=p, hash_bits=64), device).update(x_t),
+        "HybridBank.update_many + estimate_many": lambda: HybridBank.empty(small_rows, cfg, device=device)
+        .update_many(hk_t, hx_t).estimate_many(),
+    }
+    syncs = {}
+    for name, op in ops.items():
+        op()  # warm
+        off = _sync_calls([op] * 3, on_card)
+        metrics.enable()
+        tracing.start_trace()
+        on = _sync_calls([op] * 3, on_card)
+        tracing.stop_trace()
+        metrics.disable()
+        syncs[name] = (off, on)
+    rings = [ring0.observe(hk_t, hx_t) for _ in range(7)]
+    rings[0].estimate_window()  # warm
+    off = _sync_calls([r.estimate_window for r in rings[1:4]], on_card)
+    metrics.enable()
+    tracing.start_trace()
+    on = _sync_calls([r.estimate_window for r in rings[4:]], on_card)
+    tracing.stop_trace()
+    metrics.disable()
+    metrics.reset()
+    syncs["WindowedBank.estimate_window"] = (off, on)
+    added = {name: on - off for name, (off, on) in syncs.items() if on_card and on > off}
+    result = {"rows": rows, "p": p, "tick_items": tick_items, "calls_per_arm": calls * rounds,
+              "median_ms": median_ms, "over_passthrough": ratios,
+              "sync_calls": {name: {"disabled": off, "enabled_traced": on} for name, (off, on) in syncs.items()}}
+    print(f"[obs] {json.dumps(result)}")
+    if added:
+        raise AssertionError(f"enabling metrics and a trace added synchronizing calls: {added}")
+    return result
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -1973,6 +2260,8 @@ def main() -> int:
         raise AssertionError(f"rwkv_intra launched {serve['intra_launches_per_prefill']} times a prefill, "
                              f"not once per layer ({serve['layers']})")
     launches.update({name: serve_launches[name] for name in SERVE_KERNELS})
+    launch = _timed(phase_launch, device)
+    obs = _timed(phase_obs, device)
 
     timing = _timed(phase_timing, device)
     _timed(phase_profile, device)
@@ -1990,6 +2279,9 @@ def main() -> int:
           f"decode {serve['decode_tokens_per_s']:.6g} tokens/s over {serve['gen_len']} steps; "
           f"rwkv_intra {serve['intra_ms_per_prefill']} ms of it (share {serve['intra_share_of_prefill']}); "
           f"peak device memory {serve['max_memory_allocated']} bytes")
+    print(f"[timing] launcher {SERVE_ARCH} full width: prefill {launch['prefill_tokens_per_s']:.6g} tokens/s, "
+          f"decode {launch['decode_tokens_per_s']:.6g} tokens/s, peak device memory "
+          f"{launch['max_memory_allocated']} bytes; obs over passthrough {obs['over_passthrough']}")
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,0 +1,161 @@
+"""Nested span tracing → Chrome-trace-event JSON, plus shared timer helpers.
+
+``span("name")`` is the one timing idiom for launch/train/bench code
+(replacing the hand-rolled ``perf_counter`` pairs): it always measures
+``elapsed_s``; while a capture started by :func:`start_trace` is active it
+also appends a Chrome ``"X"`` (complete) event, and ``metric=`` feeds the
+duration into a metrics histogram when metrics are enabled.  Nesting needs
+no bookkeeping — Perfetto reconstructs the stack from overlapping
+``ts``/``dur`` ranges per thread.
+
+:func:`chrome_trace` / :func:`write_trace` emit the ``{"traceEvents":
+[...]}`` JSON that Perfetto (https://ui.perfetto.dev) and
+``chrome://tracing`` load directly.  The event buffer is host-side only;
+span bodies that run while ``torch.compile`` traces record nothing (same
+hygiene gate as the metrics registry, DESIGN.md §15).  Port of
+``repro/obs/tracing.py`` with the same event fields.  A span's time is host
+wall time: a caller that wants the card's time in it synchronizes inside.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.obs import metrics as _metrics
+
+__all__ = [
+    "span",
+    "Stopwatch",
+    "start_trace",
+    "stop_trace",
+    "active",
+    "chrome_trace",
+    "write_trace",
+]
+
+_LOCK = threading.Lock()
+_EVENTS: list = []
+_ACTIVE = False
+_T0 = 0.0
+
+
+def start_trace() -> None:
+    """Begin a capture: clears the buffer and timestamps events from now."""
+    global _ACTIVE, _T0
+    with _LOCK:
+        _EVENTS.clear()
+        _T0 = time.perf_counter()
+        _ACTIVE = True
+
+
+def stop_trace() -> list:
+    """End the capture; returns the buffered events (buffer is kept)."""
+    global _ACTIVE
+    with _LOCK:
+        _ACTIVE = False
+        return list(_EVENTS)
+
+
+def active() -> bool:
+    return _ACTIVE
+
+
+def _emit(name: str, t0: float, dur_s: float, args: Optional[dict] = None):
+    if not _ACTIVE or torch.compiler.is_compiling():
+        return
+    event = {
+        "name": name,
+        "ph": "X",
+        "ts": (t0 - _T0) * 1e6,
+        "dur": dur_s * 1e6,
+        "pid": os.getpid(),
+        "tid": threading.get_ident(),
+    }
+    if args:
+        event["args"] = {k: str(v) for k, v in args.items()}
+    with _LOCK:
+        if _ACTIVE:
+            _EVENTS.append(event)
+
+
+# dispatch-seam timers (metrics.seam / wrap_backend) emit through us too,
+# so a --trace capture shows backend dispatches under the outer spans
+_metrics._install_trace_hook(active, _emit)
+
+
+class span:
+    """Context-manager timer; emits a Chrome event while a trace is active.
+
+    ``with span("prefill") as t: ...`` then read ``t.elapsed_s``.  Pass
+    ``metric="serve.request.seconds"`` to also feed a metrics histogram
+    (no-op unless metrics are enabled); extra keyword arguments land in
+    the event's ``args`` payload.
+    """
+
+    __slots__ = ("name", "metric", "args", "elapsed_s", "_t0")
+
+    def __init__(self, name: str, *, metric: Optional[str] = None, **args):
+        self.name = name
+        self.metric = metric
+        self.args = args or None
+        self.elapsed_s = 0.0
+
+    def __enter__(self) -> "span":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.elapsed_s = time.perf_counter() - self._t0
+        _emit(self.name, self._t0, self.elapsed_s, self.args)
+        if self.metric is not None:
+            _metrics.observe(self.metric, self.elapsed_s)
+        return False
+
+
+class Stopwatch:
+    """Explicit ``start()``/``stop()`` timer for split begin/end seams.
+
+    The watchdog-style idiom where begin and end live in different calls
+    (so a context manager cannot span them).  ``stop()`` returns elapsed
+    seconds and disarms; ``elapsed()`` peeks without disarming.
+    """
+
+    __slots__ = ("_t0",)
+
+    def __init__(self):
+        self._t0: Optional[float] = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    @property
+    def running(self) -> bool:
+        return self._t0 is not None
+
+    def elapsed(self) -> float:
+        assert self._t0 is not None, "start() not called"
+        return time.perf_counter() - self._t0
+
+    def stop(self) -> float:
+        dt = self.elapsed()
+        self._t0 = None
+        return dt
+
+
+def chrome_trace() -> dict:
+    """The capture as a Chrome-trace dict (Perfetto-loadable as JSON)."""
+    with _LOCK:
+        events = list(_EVENTS)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def write_trace(path: str) -> str:
+    with open(path, "w") as f:
+        json.dump(chrome_trace(), f)
+    return path

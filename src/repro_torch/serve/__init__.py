@@ -1,1 +1,2 @@
-"""Serving (port of ``repro/serve``): so far the prefill/decode engine."""
+"""Serving (port of ``repro/serve``): the prefill/decode engine and the
+coalescing ingest path."""

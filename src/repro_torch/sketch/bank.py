@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll, u64
 from repro_torch.sketch.carrier import HyperLogLog
 from repro_torch.sketch.hll import HLLConfig
@@ -220,7 +221,7 @@ class SketchBank:
         flat_keys, flat_items = _flat_keys_items(keys, items, self.device)
         if flat_items.shape[0] == 0 or len(self) == 0:
             return self
-        # obs site (bank.update_many.batch_items) waits for ROADMAP A.9
+        obs_metrics.observe("bank.update_many.batch_items", flat_items.shape[0])
         regs = update_bank_registers(self.registers, flat_keys, flat_items, self.cfg, plan)
         # count only the observations that actually landed (dropped keys
         # must not inflate a row's exact counter)

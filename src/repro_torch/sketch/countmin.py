@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll, murmur3, u64
 from repro_torch.sketch.bank import _counter_add_rows, _flat_keys_items, _routed_counts
 from repro_torch.sketch.dispatch import cm_mesh_sum
@@ -407,7 +408,7 @@ class CountMinBank:
         flat_keys, flat_items = _flat_keys_items(keys, items, self.device)
         if flat_items.shape[0] == 0 or len(self) == 0:
             return self
-        # obs site (cm.update_many.batch_items) waits for ROADMAP A.9
+        obs_metrics.observe("cm.update_many.batch_items", flat_items.shape[0])
         counters = update_cm_counters(self.counters, flat_keys, flat_items, self.cfg, plan)
         labels, label_counts = _label_update(
             self.labels, self.label_counts, flat_keys, flat_items, self.cfg

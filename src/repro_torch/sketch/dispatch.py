@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll
 from repro_torch.sketch.hll import HLLConfig
 from repro_torch.sketch.plan import (
@@ -39,9 +40,10 @@ def update_registers(
     backend = get_backend(plan.backend)
     flat = hll.as_items(items, registers.device)
     if flat.shape[0] == 0:
-        # the reference counts this skip (dispatch.update.skipped_empty) and
-        # observes the batch size below; obs sites wait for ROADMAP A.9
+        # skips are counted so the no-dispatch contract stays observable
+        obs_metrics.inc("dispatch.update.skipped_empty")
         return registers
+    obs_metrics.observe("update.batch_items", flat.shape[0])
     return backend(registers, flat, cfg, plan)
 
 
@@ -68,8 +70,7 @@ def dedup_pairs(
     try:
         backend = get_sparse_backend(plan.backend)
     except ValueError:
-        # the reference counts this (dispatch.sparse_dedup.fallback); obs
-        # sites wait for ROADMAP A.9
+        obs_metrics.inc("dispatch.sparse_dedup.fallback")
         backend = get_sparse_backend("torch")
     return backend(row, bucket, rank, rows, cfg, plan)
 

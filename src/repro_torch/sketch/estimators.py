@@ -26,6 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch.hll import HLLConfig, alpha
 
 # alpha_infinity = 1 / (2 ln 2): the bias constant of Ertl's raw estimator.
@@ -442,10 +443,12 @@ def estimate(
 ) -> float:
     """Phase 4, host-exact: histogram the registers, then finalize."""
     name = resolve_estimator(estimator)
-    # the reference times this under repro.obs's seam("estimate", name);
-    # the obs slice (ROADMAP A.9) threads it in
-    counts = register_histogram_host(registers, cfg)
-    return float(get_estimator(name).host(counts, cfg))
+    # finalization time per estimator (DESIGN.md §15) -- the "estimate"
+    # axis reuses the dispatch-seam shape the backend registries get from
+    # plan.register_*, with the estimator name in the backend slot
+    with obs_metrics.seam("estimate", name):
+        counts = register_histogram_host(registers, cfg)
+        return float(get_estimator(name).host(counts, cfg))
 
 
 def _estimate_device(
@@ -463,8 +466,8 @@ def estimate_device(
     """Float32 estimate of one (m,) sketch on its device (telemetry path)."""
     validate_registers(registers, cfg, batched=False)
     name = resolve_estimator(estimator)
-    # obs seam("estimate") site: left out until the obs slice (ROADMAP A.9)
-    return _estimate_device(registers, cfg, name)
+    with obs_metrics.seam("estimate", name):
+        return _estimate_device(registers, cfg, name)
 
 
 def estimate_many(
@@ -479,5 +482,5 @@ def estimate_many(
     """
     validate_registers(register_bank, cfg, batched=True)
     name = resolve_estimator(estimator)
-    # obs seam("estimate") site: left out until the obs slice (ROADMAP A.9)
-    return _estimate_device(register_bank, cfg, name)
+    with obs_metrics.seam("estimate", name):
+        return _estimate_device(register_bank, cfg, name)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch.estimators import DEFAULT_ESTIMATOR, get_estimator
 
 DEFAULT_PIPELINES = 8
@@ -128,9 +129,11 @@ def register_backend(name: str) -> Callable[[Callable], Callable]:
     def deco(fn: Callable) -> Callable:
         if name in _BACKENDS:
             raise ValueError(f"backend {name!r} already registered")
-        # the reference wraps fn in repro.obs's per-backend dispatch
-        # counter here; the obs slice (ROADMAP A.9) threads that in
-        _BACKENDS[name] = fn
+        # every axis wraps at registration so per-backend dispatch counts
+        # and wall time (DESIGN.md §15) cost one flag check when disabled;
+        # short-circuits (empty streams) never reach the wrapper, so they
+        # are never counted
+        _BACKENDS[name] = obs_metrics.wrap_backend("update", name, fn)
         return fn
 
     return deco
@@ -147,8 +150,7 @@ def register_bank_backend(name: str) -> Callable[[Callable], Callable]:
     def deco(fn: Callable) -> Callable:
         if name in _BANK_BACKENDS:
             raise ValueError(f"bank backend {name!r} already registered")
-        # obs wrap_backend site left out until the obs slice (ROADMAP A.9)
-        _BANK_BACKENDS[name] = fn
+        _BANK_BACKENDS[name] = obs_metrics.wrap_backend("bank_update", name, fn)
         return fn
 
     return deco
@@ -168,8 +170,7 @@ def register_window_backend(name: str) -> Callable[[Callable], Callable]:
     def deco(fn: Callable) -> Callable:
         if name in _WINDOW_BACKENDS:
             raise ValueError(f"window backend {name!r} already registered")
-        # obs wrap_backend site left out until the obs slice (ROADMAP A.9)
-        _WINDOW_BACKENDS[name] = fn
+        _WINDOW_BACKENDS[name] = obs_metrics.wrap_backend("window_fold", name, fn)
         return fn
 
     return deco
@@ -189,8 +190,7 @@ def register_window_merge_backend(name: str) -> Callable[[Callable], Callable]:
     def deco(fn: Callable) -> Callable:
         if name in _WINDOW_MERGE_BACKENDS:
             raise ValueError(f"window merge backend {name!r} already registered")
-        # obs wrap_backend site left out until the obs slice (ROADMAP A.9)
-        _WINDOW_MERGE_BACKENDS[name] = fn
+        _WINDOW_MERGE_BACKENDS[name] = obs_metrics.wrap_backend("window_merge", name, fn)
         return fn
 
     return deco
@@ -207,8 +207,10 @@ def register_cm_backend(name: str, ingest: Callable, query: Callable) -> CMBacke
     """
     if name in _CM_BACKENDS:
         raise ValueError(f"cm backend {name!r} already registered")
-    # obs wrap_backend sites (cm_update, cm_query) wait for ROADMAP A.9
-    backend = CMBackend(ingest, query)
+    backend = CMBackend(
+        obs_metrics.wrap_backend("cm_update", name, ingest),
+        obs_metrics.wrap_backend("cm_query", name, query),
+    )
     _CM_BACKENDS[name] = backend
     return backend
 
@@ -226,8 +228,7 @@ def register_cm_window_backend(name: str) -> Callable[[Callable], Callable]:
     def deco(fn: Callable) -> Callable:
         if name in _CM_WINDOW_BACKENDS:
             raise ValueError(f"cm window backend {name!r} already registered")
-        # obs wrap_backend site left out until the obs slice (ROADMAP A.9)
-        _CM_WINDOW_BACKENDS[name] = fn
+        _CM_WINDOW_BACKENDS[name] = obs_metrics.wrap_backend("cm_window_fold", name, fn)
         return fn
 
     return deco
@@ -247,8 +248,7 @@ def register_sparse_backend(name: str) -> Callable[[Callable], Callable]:
     def deco(fn: Callable) -> Callable:
         if name in _SPARSE_BACKENDS:
             raise ValueError(f"sparse backend {name!r} already registered")
-        # obs wrap_backend site left out until the obs slice (ROADMAP A.9)
-        _SPARSE_BACKENDS[name] = fn
+        _SPARSE_BACKENDS[name] = obs_metrics.wrap_backend("sparse_dedup", name, fn)
         return fn
 
     return deco

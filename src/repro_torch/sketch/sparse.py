@@ -56,6 +56,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll, u64
 from repro_torch.sketch.bank import (
     _BANK_HEADER,
@@ -415,14 +416,15 @@ class HybridBank:
         Idempotent and cached (a bank is immutable, so its settled form is
         too): repeated reads on the same instance compact once.  The
         result is bit-identical to having eagerly deduplicated every
-        ``update_many`` batch.  ``_reason`` ("read" or "pressure") labels
-        the flush for the reference's metrics registry, whose record site
-        (sparse.flush.<reason>) waits for the obs slice (ROADMAP A.9).
+        ``update_many`` batch.  ``_reason`` labels the flush for the metrics
+        registry: "read" for settle-reads (a read surface forcing the log
+        down), "pressure" when the ingest path crossed the flush floors.
         """
         if self.pending is None:
             return self
         cached = self.__dict__.get("_settled")
         if cached is None:
+            obs_metrics.inc(f"sparse.flush.{_reason}")
             cached = self._compact_now()
             object.__setattr__(self, "_settled", cached)
         return cached
@@ -447,9 +449,9 @@ class HybridBank:
         pair_len = torch.where(keep, dd.distinct, 0)
         cap = _fit_capacity(int(pair_len.max()), self.threshold)
         promoted = torch.nonzero(promote).squeeze(1)
-        # the reference counts promotions here (sparse.promotions); obs
-        # sites wait for ROADMAP A.9
         count = int(promoted.shape[0])
+        if count:
+            obs_metrics.inc("sparse.promotions", count)
         slot_of_row = torch.full((rows,), -1, dtype=torch.int32, device=keys.device)
         slot_of_row[promoted] = torch.arange(count, dtype=torch.int32, device=keys.device)
         new_pairs, fresh = _dedup_products(
@@ -631,8 +633,8 @@ class HybridBank:
                 chunk = (flat_keys[sparse_sel], flat_items[sparse_sel])
             chunks = (chunk,) if pending is None else pending.chunks + (chunk,)
             pending = _PendingLog(chunks, n_sparse + (pending.total if pending else 0), plan)
-            # the reference counts appends here (sparse.pending.*); obs
-            # sites wait for ROADMAP A.9
+            obs_metrics.inc("sparse.pending.appends")
+            obs_metrics.inc("sparse.pending.pairs", n_sparse)
 
         out = dataclasses.replace(
             self,

@@ -49,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll, u64
 from repro_torch.sketch.bank import _BANK_HEADER, SketchBank
 from repro_torch.sketch.hll import HLLConfig
@@ -262,8 +263,7 @@ class WindowedBank(_RingReads):
         ``torch.maximum`` steps instead, once per W rotations.  Expired
         slots were zeroed by ``advance_to`` and fold as the rank-0 identity.
         """
-        # the reference counts rebuilds here (window.prefix_rebuilds); obs
-        # sites wait for ROADMAP A.9
+        obs_metrics.inc("window.prefix_rebuilds")
         cursor = self.cursor
         closed = torch.cat([self.registers[cursor + 1 :], self.registers[:cursor]])
         for i in range(closed.shape[0] - 2, -1, -1):
@@ -402,8 +402,9 @@ class WindowedBank(_RingReads):
         key = (last_k, plan.backend, plan.pipelines, plan.placement)
         hit = cache.get(key)
         if hit is not None:
-            # reference obs site: window.fold_cache.hits (ROADMAP A.9)
+            obs_metrics.inc("window.fold_cache.hits")
             return hit
+        obs_metrics.inc("window.fold_cache.misses")
         if last_k == self.window:
             regs = self._fold_incremental(plan)
         else:
@@ -662,7 +663,9 @@ class HybridWindowedBank(_RingReads):
             cache = self.__dict__.setdefault("_fold_cache", {})
             hit = cache.get(key)
             if hit is not None:
+                obs_metrics.inc("window.fold_cache.hits")
                 return hit
+            obs_metrics.inc("window.fold_cache.misses")
         mask = self._host_live_mask(last_k)
         live = [self.buckets[s] for s in range(self.window) if mask[s]]
         out = live[0]
@@ -978,7 +981,9 @@ class MultiResWindowedBank:
             cache = self.__dict__.setdefault("_fold_cache", {})
             hit = cache.get(key)
             if hit is not None:
+                obs_metrics.inc("window.fold_cache.hits")
                 return hit
+            obs_metrics.inc("window.fold_cache.misses")
         stack = torch.stack(
             [self.current.registers] + [b.bank.registers for b in self._live_buckets(last_k)]
         )

@@ -5,9 +5,9 @@
   bank, counters, bytes and estimates; likewise one single-sketch stream,
   and one epoch stream through a HybridBank and a WindowedBank.
 * ``chip_smoke.py``'s phases (kernels, stream, bank, hybrid, window,
-  countmin, cm_window, board, serve) rehearsed at a tiny size on the CPU
-  (serve: the reduced RWKV6-3B), where every kernel wrapper runs its plain
-  version.
+  countmin, cm_window, board, serve, launch, obs) rehearsed at a tiny size
+  on the CPU (serve and launch: the reduced RWKV6-3B), where every kernel
+  wrapper runs its plain version.
 * ``import repro_torch``, its model and serve modules and ``import
   chip_smoke`` pull in no ``jax`` and nothing of ``repro``.
 """
@@ -126,6 +126,32 @@ def test_chip_smoke_serve_phase_rehearses_on_the_cpu():
     assert launch_counts()["rwkv_intra"] == 0
 
 
+def test_chip_smoke_launch_and_obs_phases_rehearse_on_the_cpu(tmp_path):
+    from repro_torch.obs import metrics
+    from repro_torch.serve.coalesce import SharedWindowRing
+
+    reset_launches()
+    args = ("--arch", chip_smoke.SERVE_ARCH, "--requests", "3", "--prompt-len", "64", "--gen-len", "2",
+            "--report-every", "1")
+    try:
+        launch = chip_smoke.phase_launch("cpu", args=args, out_dir=tmp_path)
+    finally:
+        SharedWindowRing.reset()
+    assert (launch["requests"], launch["prompt_len"], launch["gen_len"]) == (3, 64, 2)
+    assert launch["prefill_tokens_per_s"] > 0 and launch["decode_tokens_per_s"] > 0
+    assert {"bank_update[cuda]", "sparse_dedup[cuda]", "cm_update[cuda]", "window_merge[cuda]"} <= set(launch["seams"])
+    assert (tmp_path / "launch_metrics.json").exists() and (tmp_path / "launch_trace.json").exists()
+    assert not metrics.enabled()
+    obs = chip_smoke.phase_obs("cpu", rows=16, p=8, tick_items=1 << 10, calls=3, rounds=1, small_rows=16,
+                               small_items=1 << 10, window=3)
+    assert set(obs["over_passthrough"]) == {"disabled", "enabled", "traced"}
+    assert len(obs["sync_calls"]) == 4 and not metrics.enabled()
+    # the passthrough arm put the wrapped backends and record sites back
+    assert hasattr(chip_smoke.SketchBank, "update_many") and metrics.inc.__module__ == metrics.__name__
+    # on the CPU the wrappers run their plain versions and never count a launch
+    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+
+
 def test_chip_smoke_control_catches_a_wrong_intra_term(monkeypatch):
     # a kernel off by more than the sums' last places fails the serve check
     arch = chip_smoke.get_arch(chip_smoke.SERVE_ARCH).reduced()
@@ -162,6 +188,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.sketch.sparse, repro_torch.sketch.window, repro_torch.sketch.countmin\n"
         "import repro_torch.telemetry, repro_torch.configs, repro_torch.models.rwkv6\n"
         "import repro_torch.models.transformer, repro_torch.models.registry, repro_torch.serve.engine\n"
+        "import repro_torch.obs, repro_torch.serve.coalesce, repro_torch.launch.serve\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
