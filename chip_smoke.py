@@ -142,6 +142,37 @@ raises (exit code 1) when it fails:
            SketchBank.update_many, HyperLogLog.update, HybridBank.update_many
            with its settling read, and WindowedBank.estimate_window must not
            grow when metrics and a trace are on.
+  placement  every sketch carrier at its phase's shape under placement
+           "sharded" and "mesh" over a 4-position mesh on the one card
+           ([cuda:0] * 4: four row blocks, four stream shards) and over a
+           mesh of the visible cards, under "cuda", bit-identical to
+           placement "local": the bank (1024 x p = 16, 2 ticks of 2^22
+           Zipf(1.2)-keyed items; registers, counters, estimates, RHLB),
+           the hybrid bank (B = 16384, p = 12; settled state, estimates,
+           RHLB v2), the ring (W = 64, B = 1024, p = 12, W + 4 epochs of
+           2^20 items; folds and full and suffix reads every 16 epochs,
+           the ring, RHLW), count-min (1024 x CMConfig(4, 1024), 2^22 + 3
+           items; counters, labels, votes, RCMB) and one stream sketch
+           (p = 16, 4 chunks of 2^22 + 5 items) under "cuda" and
+           "cuda_pipelined".  Prints the walls of local and sharded bank
+           ingest (the last tick again) and read, 10 each in turns after a
+           warm-up round, and the bank_scatter_max path of each block.
+  attn_serve  TinyLlama-1.1B unreduced (22 layers, d 2048, 32 heads over
+           4 KV heads, d_ff 5632, vocab 32000; 1.1 B float32 parameters
+           drawn on the card) through ``repro_torch.launch.serve.main``
+           with its default arch and the launch phase's traffic (8 x
+           1024-token prompts, 32 greedy steps), with --placement local
+           and sharded in turns, twice: the same printed telemetry, every
+           kernel of ATTN_LAUNCH_KERNELS launched in each run; prints
+           prefill and decode tokens/s and peak device memory.  Then at 2
+           full-width layers: prefill of 256 tokens + 8 teacher-forced
+           decode steps against forward, in float32 (atol 2e-3), in bf16
+           (atol 0.15), in float32 with a 128-token sliding window (the
+           ring wraps), and in bf16 with the int8 KV cache (atol 0.3); and
+           a ContinuousBatcher of 6 prompts of 37-511 tokens over 4 slots
+           at full width in float32, each request's tokens held to its solo
+           decode (a token may differ only where solo's top logit leads it
+           by at most 1e-3; the agreement is printed).
   timing   each kernel's device time (CUDA events over warm launches
            queued back to back) and host time per call, its bound (the
            larger of bytes over 3.35 TB/s and float32 operations over
@@ -155,11 +186,12 @@ raises (exit code 1) when it fails:
            on both paths at each caller's shape and at banks of 16, 32 and
            48 MiB, on random registers and on the registers one update
            leaves (the numbers of bank_scatter.py's path rule).
-  profile  torch.profiler over a few stream chunks, bank ticks and their
-           bank_scatter_max alone, hybrid
+  profile  torch.profiler over a few stream chunks, bank ticks (local and
+           over 4 row blocks) and their bank_scatter_max alone, hybrid
            ticks, full-window reads, count-min ticks, their label votes
            alone and their cm_scatter_add alone, full-window reads of the
-           count-min ring, full-width RWKV6-3B prefills and decode steps,
+           count-min ring, full-width RWKV6-3B and TinyLlama-1.1B
+           prefills and decode steps,
            after a warm-up step: wall and device-busy time per step, idle
            share, top device entries.
 
@@ -170,7 +202,11 @@ zeroed again just before the serve phase and read just after; rwkv_intra
 must have launched there, once per layer of every prefill whose prompt a
 chunk divides.  They are zeroed once more just before the launch phase's
 run and read just after it; every kernel of LAUNCH_KERNELS must have
-launched there.  After the kernels phase it checks that the count-min main
+launched there.  They are zeroed just before the placement phase and read
+just after; every kernel of PLACEMENT_KERNELS must have launched there;
+and just before and after each launcher run of the attn_serve phase, where
+every kernel of ATTN_LAUNCH_KERNELS must have launched.  After the kernels
+phase it checks that the count-min main
 path's shapes take the tiled cm_scatter_add, and the bank tick the tiled
 bank_scatter_max.
 Before the last line it prints the kernels' JSON record and the card's
@@ -1604,6 +1640,350 @@ def phase_launch(device, args=LAUNCH_ARGS, out_dir: Path = BUILD, kernels=LAUNCH
     return result
 
 
+# the placement phase's kernels: the bank and window ingest (hash + bank
+# scatter), the single sketch (fused, and the pipelined fold), the hybrid
+# settle, the ring reads, count-min ingest
+PLACEMENT_KERNELS = ("hash_rank", "bank_scatter_max", "hll_update_fused", "bucket_fold", "sparse_scatter_coo",
+                     "window_fold_max", "window_merge_max", "cm_scatter_add")
+PLACEMENT_SHARDS = 4  # row blocks on one card: the port's forced-device count
+PLACEMENT_WINDOW_EPOCHS = WINDOW + 4  # the ring wraps once
+
+
+def _placement_meshes(device, shards: int) -> dict:
+    """A mesh of ``shards`` positions on ``device``, and one over the visible
+    devices of its kind (every card; the one CPU)."""
+    from repro_torch.launch.mesh import make_auto_mesh
+
+    dev = torch.device(device)
+    visible = make_auto_mesh((torch.cuda.device_count(),), ("data",)) if dev.type == "cuda" else \
+        make_auto_mesh((1,), ("data",), [dev])
+    return {f"{shards}-shard": make_auto_mesh((shards,), ("data",), [dev] * shards),
+            f"{len(visible.devices)}-device": visible}
+
+
+def _placement_plans(base: ExecutionPlan, meshes: dict, placements=("sharded", "mesh")) -> dict:
+    return {f"{placement} {name}": (base.with_sharding(mesh) if placement == "sharded" else base.with_mesh(mesh))
+            for name, mesh in meshes.items() for placement in placements}
+
+
+def _wall(fn, device):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def phase_placement(device, shards: int = PLACEMENT_SHARDS, rows: int = BANK_ROWS, ticks: int = 2,
+                    tick_items: int = BANK_TICK_ITEMS, p: int = 16, hybrid_rows: int = HYBRID_ROWS,
+                    hybrid_items_per_row: int = HYBRID_ITEMS_PER_ROW, window: int = WINDOW,
+                    window_rows: int = WINDOW_ROWS, window_epochs: int = PLACEMENT_WINDOW_EPOCHS,
+                    epoch_items: int = WINDOW_EPOCH_ITEMS, cm_rows: int = CM_ROWS, cm_depth: int = CM_DEPTH,
+                    cm_width: int = CM_WIDTH, cm_items: int = CM_TICK_ITEMS, stream_chunks: int = 4,
+                    stream_items: int = STREAM_CHUNK_ITEMS, repeats: int = 10) -> dict:
+    """Each carrier at its phase's shape under placement="sharded" and
+    "mesh" over a ``shards``-position mesh on one card and over the visible
+    devices, bit-identical to placement="local" under "cuda": the bank
+    (registers, counters, estimates, RHLB), the hybrid bank (settled state,
+    estimates, RHLB v2), the W-epoch ring (ring, folds, full and suffix
+    reads, RHLW), count-min (counters, labels, votes, RCMB) and one stream
+    sketch under "cuda" and "cuda_pipelined".  Prints the walls of local
+    and sharded bank ingest and read (medians of ``repeats`` in turns) and
+    the bank path each block took."""
+    meshes = _placement_meshes(device, shards)
+    local = ExecutionPlan(backend="cuda")
+    plans = _placement_plans(local, meshes)
+    out = {"shards": shards, "meshes": list(meshes)}
+
+    # the bank: 1024 x p = 16 (64 MiB), Zipf(1.2) tenant keys
+    rng = np.random.default_rng(SEED + 11)
+    cfg = HLLConfig(p=p, hash_bits=64)
+    keys, items = _zipf_keyed(rows, ticks * tick_items, rng)
+    k_t, x_t = torch.from_numpy(keys).to(device), torch.from_numpy(items).to(device)
+    spans = [slice(t * tick_items, (t + 1) * tick_items) for t in range(ticks)]
+    banks = {}
+    for name, plan in {"local": local, **plans}.items():
+        bank = SketchBank.empty(rows, cfg, device)
+        for span in spans:
+            bank = bank.update_many(k_t[span], x_t[span], plan)
+        banks[name] = (bank, bank.estimate_many(plan=plan))
+    # walls: the last tick again onto each filled bank, and a read, local
+    # and 4 row blocks in turns after a warm-up round; medians and samples
+    sharded = f"sharded {shards}-shard"
+    walls = {name: {"ingest_s": [], "read_s": []} for name in ("local", sharded)}
+    for rep in range(repeats + 1):
+        for name in walls:
+            plan, bank = {"local": local, **plans}[name], banks[name][0]
+            _, ingest = _wall(lambda: bank.update_many(k_t[spans[-1]], x_t[spans[-1]], plan), device)
+            _, read = _wall(lambda: bank.estimate_many(plan=plan), device)
+            if rep:
+                walls[name]["ingest_s"].append(ingest)
+                walls[name]["read_s"].append(read)
+    medians = {name: {k: statistics.median(v) for k, v in w.items()} for name, w in walls.items()}
+    want, want_est = banks["local"]
+    blob = want.to_bytes()
+    for name in plans:
+        bank, est = banks[name]
+        _max_abs_err(bank.registers, want.registers, f"bank registers {name} vs local")
+        _max_abs_err(bank.n_items, want.n_items, f"bank counters {name} vs local")
+        _max_abs_err(est.view(torch.int32), want_est.view(torch.int32), f"bank estimates {name} vs local")
+        if bank.to_bytes() != blob:
+            raise AssertionError(f"RHLB bytes {name} differ from local")
+    sms = _sms(device) if torch.device(device).type == "cuda" else 132
+    block = -(-rows // shards)
+    out["bank"] = {
+        "rows": rows, "items_per_tick": tick_items, "walls": walls, "median_walls": medians,
+        "path_local": bank_module.bank_scatter_path(rows, cfg.m, tick_items, sms),
+        "path_per_block": [bank_module.bank_scatter_path(min(block, rows - i * block), cfg.m, tick_items, sms)
+                           for i in range(shards)],
+    }
+
+    # hybrid: bench_sparse's acceptance deployment, B = 16384, p = 12
+    rng = np.random.default_rng(SEED + 12)
+    hcfg = HLLConfig(p=12, hash_bits=64)
+    hk, hx = _zipf_traffic(hybrid_rows, hybrid_rows * hybrid_items_per_row, rng)
+    hk_c = torch.from_numpy(hk).to(device).tensor_split(HYBRID_CHUNKS)
+    hx_c = torch.from_numpy(hx).to(device).tensor_split(HYBRID_CHUNKS)
+    hybrids = {}
+    for name, plan in {"local": local, **plans}.items():
+        bank = HybridBank.empty(hybrid_rows, hcfg, device=device)
+        for k, x in zip(hk_c, hx_c):
+            bank = bank.update_many(k, x, plan).compact()
+        hybrids[name] = (bank, bank.estimate_many(plan=plan))
+    want, want_est = hybrids["local"]
+    for name in plans:
+        bank, est = hybrids[name]
+        _same_hybrid(bank, want, f"hybrid {name} vs local")
+        _max_abs_err(est.view(torch.int32), want_est.view(torch.int32), f"hybrid estimates {name} vs local")
+        if bank.to_bytes() != want.to_bytes():
+            raise AssertionError(f"RHLB v2 bytes {name} differ from local")
+    out["hybrid"] = {"rows": hybrid_rows, "promoted_rows": want.dense_rows}
+
+    # the ring: W = 64, B = 1024, p = 12 (256 MiB)
+    rng = np.random.default_rng(SEED + 13)
+    rings = {name: WindowedBank.empty(window, window_rows, hcfg, device) for name in {"local": local, **plans}}
+    reads = 0
+    for epoch in range(window_epochs):
+        k, x = _zipf_epoch(window_rows, epoch_items, rng, device)
+        for name, plan in {"local": local, **plans}.items():
+            rings[name] = (rings[name].advance() if epoch else rings[name]).observe(k, x, plan)
+        if epoch % 16 != 15 and epoch != window_epochs - 1:
+            continue
+        reads += 1
+        want = rings["local"]
+        for last_k in (None, max(1, window // 4)):
+            want_fold = want.fold_window(last_k, plan=local).registers
+            want_est = want.estimate_window(last_k, plan=local)
+            for name, plan in plans.items():
+                _max_abs_err(rings[name].fold_window(last_k, plan=plan).registers, want_fold,
+                             f"ring fold {name} epoch {epoch} last_k {last_k}")
+                _max_abs_err(rings[name].estimate_window(last_k, plan=plan).view(torch.int32),
+                             want_est.view(torch.int32), f"ring estimates {name} epoch {epoch} last_k {last_k}")
+    blob = rings["local"].to_bytes()
+    for name in plans:
+        _max_abs_err(rings[name].registers, rings["local"].registers, f"ring {name} vs local")
+        if rings[name].to_bytes() != blob:
+            raise AssertionError(f"RHLW bytes {name} differ from local")
+    out["window"] = {"window": window, "rows": window_rows, "epochs": window_epochs, "reads": reads}
+
+    # count-min: B = 1024, CMConfig(4, 1024); the stream length is odd, so
+    # the mesh rule pads the keys with -1
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    ck, cx = _cm_traffic(cm_rows, cm_items + 3, CM_ITEM_IDS, gen)
+    ccfg = CMConfig(cm_depth, cm_width, seed=0)
+    cms = {name: CountMinBank.empty(cm_rows, ccfg, device).update_many(ck, cx, plan)
+           for name, plan in {"local": local, **plans}.items()}
+    for name in plans:
+        _same_cm(cms[name], cms["local"], f"count-min {name} vs local")
+        if cms[name].to_bytes() != cms["local"].to_bytes():
+            raise AssertionError(f"RCMB bytes {name} differ from local")
+    out["countmin"] = {"rows": cm_rows, "items": cm_items + 3}
+
+    # one stream sketch under mesh, "cuda" and "cuda_pipelined"; an odd
+    # length, so the stream is edge-padded
+    scfg = HLLConfig(p=16, hash_bits=64)
+    stream = _items_tensor(_stream_items(stream_chunks * stream_items + 5, np.random.default_rng(SEED + 15)), device)
+    for backend in ("cuda", "cuda_pipelined"):
+        base = ExecutionPlan(backend=backend, pipelines=PIPELINES)
+        want = HyperLogLog.empty(scfg, device).update(stream, base)
+        for name, plan in _placement_plans(base, meshes, ("mesh",)).items():
+            got = HyperLogLog.empty(scfg, device)
+            for chunk in stream.tensor_split(stream_chunks):
+                got = got.update(chunk, plan)
+            _max_abs_err(got.registers, want.registers, f"stream sketch {backend} {name} vs local")
+    out["bank_ratio_sharded_over_local"] = {
+        "ingest": medians[sharded]["ingest_s"] / medians["local"]["ingest_s"],
+        "read": medians[sharded]["read_s"] / medians["local"]["read_s"],
+    }
+    print(f"[placement] {json.dumps(out)}")
+    return out
+
+
+ATTN_ARCH = "tinyllama-1.1b"
+ATTN_LAUNCH_ARGS = ("--arch", ATTN_ARCH, "--full-config", "--requests", str(SERVE_REQUESTS), "--prompt-len",
+                    str(SERVE_PROMPT), "--gen-len", str(SERVE_GEN), "--report-every", "4")
+# the board's kernels on the attention launcher (no rwkv_intra there)
+ATTN_LAUNCH_KERNELS = ("hash_rank", "bank_scatter_max", "sparse_scatter_coo", "cm_scatter_add",
+                       "window_fold_max", "window_merge_max")
+ATTN_CHECK_PROMPT, ATTN_CHECK_STEPS = 256, 8  # the 2-layer legs
+ATTN_WINDOW = 128  # the SWA leg's window, under its prompt of 256
+ATTN_F32_ATOL = 2e-3  # float32 legs: prefill + decode against forward (TF32 off)
+ATTN_BF16_ATOL = 0.15  # bf16 legs: GEMMs of other shapes round otherwise (SERVE_TF_ATOL)
+ATTN_QUANT_ATOL = 0.3  # the int8 cache against forward's bf16 K/V
+ATTN_BATCH_PROMPTS = (37, 128, 300, 64, 511, 90)
+ATTN_BATCH_SLOTS, ATTN_BATCH_NEW = 4, 8
+ATTN_BATCH_TIE = 1e-3  # float32 logits: a token may differ from solo only on a tie this close
+
+
+def _launcher_run(device, argv, snap_path: Path) -> dict:
+    """One in-process run of ``repro_torch.launch.serve.main`` with metrics
+    on: its printed telemetry (less the wall-clock lines), wall, prefill and
+    decode tokens/s from its spans, launch counts and peak device memory.
+    The launch counts are zeroed just before the run and read just after."""
+    import gc
+    import io
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.obs import metrics
+    from repro_torch.serve.coalesce import SharedWindowRing
+
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    SharedWindowRing.reset()
+    parsed = launcher._parser().parse_args(list(argv))
+    printed = io.StringIO()
+    reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            launcher.main(list(argv) + ["--device", str(device), "--metrics-out", str(snap_path)])
+        _sync(device)
+    finally:
+        metrics.disable()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hists = json.loads(snap_path.read_text())["histograms"]
+    b, s, t = parsed.requests, parsed.prompt_len, parsed.gen_len
+    lines = printed.getvalue().splitlines()
+    return {
+        "wall_s": wall, "launches": launches, "printed": lines,
+        "prefill_tokens_per_s": b * s / hists["serve.prefill.seconds"]["sum"],
+        "decode_tokens_per_s": b * t / hists["serve.decode.seconds"]["sum"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(device) if on_card else None,
+        # the tok/s line, the [metrics] latencies and the snapshot path vary
+        "telemetry": [line for line in lines[1:] if not line.startswith(("[metrics]", "  metrics snapshot"))],
+    }
+
+
+def _against_forward(model, arch, toks, steps: int, atol: float, what: str) -> float:
+    """Prefill of all but ``steps`` tokens, then teacher-forced decode steps,
+    against forward over all of them: the largest logit difference of each."""
+    s = toks.shape[1] - steps
+    with torch.inference_mode():
+        full, _, _ = transformer.forward(model, {"tokens": toks}, arch)
+    pre, cache = engine.prefill(model, {"tokens": toks[:, :s]}, arch, toks.shape[1])
+    err = {"prefill": float((pre.float() - full[:, :s].float()).abs().max()), "decode": 0.0}
+    for t in range(steps):
+        step, cache = engine.decode_step(model, cache, toks[:, s + t], s + t, arch)
+        err["decode"] = max(err["decode"], float((step - full[:, s + t].float()).abs().max()))
+    if not max(err.values()) <= atol or not bool(torch.isfinite(full).all()):
+        raise AssertionError(f"{what}: prefill + decode differ from forward by {err} (atol {atol})")
+    return err
+
+
+def phase_attn_serve(device, args=ATTN_LAUNCH_ARGS, kernels=ATTN_LAUNCH_KERNELS, arch=None, out_dir: Path = BUILD,
+                     check_layers: int = CHECK_LAYERS, check_prompt: int = ATTN_CHECK_PROMPT,
+                     check_steps: int = ATTN_CHECK_STEPS, swa_window: int = ATTN_WINDOW,
+                     batch_prompts=ATTN_BATCH_PROMPTS, batch_slots: int = ATTN_BATCH_SLOTS,
+                     batch_new: int = ATTN_BATCH_NEW) -> dict:
+    """TinyLlama-1.1B through the serve launcher at full width, with
+    ``--placement local`` and ``sharded``: the same printed telemetry, every
+    board kernel launched.  Then, on the same widths: prefill + decode
+    against forward at ``check_layers`` layers in float32 and bf16, with a
+    sliding window under the prompt (the ring wraps) and with the int8
+    cache; and a ContinuousBatcher of mixed prompts over fewer slots than
+    requests, in float32, each request's tokens held to its solo decode."""
+    from repro_torch.serve import scheduler
+
+    on_card = torch.device(device).type == "cuda"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = {"arch": ATTN_ARCH}
+    runs = {}
+    # two rounds in turns: the first run of the process pays cuBLAS's and
+    # the allocator's set-up
+    for placement in ("local", "sharded", "local", "sharded"):
+        run = _launcher_run(device, list(args) + ["--placement", placement],
+                            out_dir / f"attn_serve_{placement}_metrics.json")
+        for line in run.pop("printed"):
+            print(f"[attn_serve] {placement} | {line}")
+        launches = run.pop("launches")
+        if on_card:
+            missing = [name for name in kernels if launches[name] == 0]
+            if missing:
+                raise AssertionError(f"kernels never launched on the {placement} launcher: {missing}")
+        run["launches"] = {name: launches[name] for name in kernels}
+        runs.setdefault(placement, []).append(run)
+    for rnd, (loc, shd) in enumerate(zip(runs["local"], runs["sharded"])):
+        if loc.pop("telemetry") != shd.pop("telemetry"):
+            raise AssertionError(f"round {rnd}: the sharded launcher printed other telemetry than the local one")
+    out["launcher"] = runs
+
+    full = get_arch(ATTN_ARCH) if arch is None else arch
+    small = dataclasses.replace(full, n_layers=check_layers)
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    toks = torch.randint(0, small.vocab_size, (2, check_prompt + check_steps), generator=gen, device=device,
+                         dtype=torch.int32)
+    legs = {}
+    for leg, dtype, atol, leg_arch in (
+        ("f32", torch.float32, ATTN_F32_ATOL, small),
+        ("bf16", torch.bfloat16, ATTN_BF16_ATOL, small),
+        ("f32 swa", torch.float32, ATTN_F32_ATOL, dataclasses.replace(small, sliding_window=swa_window)),
+        ("bf16 kv_quant", torch.bfloat16, ATTN_QUANT_ATOL, dataclasses.replace(small, kv_quant=True)),
+    ):
+        model = transformer.init_params(leg_arch, torch.Generator(device=device).manual_seed(SEED), device)
+        with _activations(dtype):
+            legs[leg] = _against_forward(model, leg_arch, toks, check_steps, atol, f"attn {leg}")
+        del model
+    out["against_forward_max_abs_err"] = legs
+
+    # continuous batching at full width in float32
+    with _activations(torch.float32):
+        model = transformer.init_params(full, torch.Generator(device=device).manual_seed(SEED), device)
+        rng = np.random.default_rng(SEED + 22)
+        prompts = [rng.integers(0, full.vocab_size, n, dtype=np.int32) for n in batch_prompts]
+        kv_len = max(batch_prompts) + batch_new + 1
+        batcher = scheduler.ContinuousBatcher(model, full, n_slots=batch_slots, kv_len=kv_len)
+        for i, prompt in enumerate(prompts):
+            batcher.submit(scheduler.Request(uid=i, prompt=prompt, max_new=batch_new))
+        got = batcher.run()
+        agree, total, worst_tie = 0, 0, 0.0
+        for i, prompt in enumerate(prompts):
+            logits, cache = engine.prefill(model, {"tokens": torch.from_numpy(prompt[None]).to(device)}, full,
+                                           kv_len)
+            step = logits[0, -1].float()
+            pos = len(prompt)
+            for j, tok in enumerate(got[i]):
+                gap = float(step.max() - step[tok])
+                agree += gap == 0.0
+                total += 1
+                worst_tie = max(worst_tie, gap)
+                if gap > ATTN_BATCH_TIE:
+                    raise AssertionError(f"batcher request {i} token {j}: {tok} trails solo's greedy by {gap}")
+                if j + 1 < len(got[i]):
+                    logits, cache = engine.decode_step(
+                        model, cache, torch.tensor([tok], dtype=torch.int32, device=device), pos, full)
+                    step, pos = logits[0], pos + 1
+        del model
+    out["batcher"] = {"requests": len(prompts), "slots": batch_slots, "tokens": total, "solo_agree": agree,
+                      "worst_gap": worst_tie}
+    print(f"[attn_serve] {json.dumps(out)}")
+    return out
+
+
 @contextlib.contextmanager
 def _passthrough(planlib, metrics):
     """No observability code on the bank path: the registry's raw backends
@@ -2053,8 +2433,9 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     one full-window
     ``fold_window()`` of the 3 GiB (64, 1024, 4, 1024) count-min ring, one
     full-width RWKV6-3B ``engine.prefill`` of 8 x 1024 tokens, or one
-    ``engine.decode_step`` of the 8 requests after it; ``only`` (step
-    names) profiles those alone.
+    ``engine.decode_step`` of the 8 requests after it, the same two for
+    TinyLlama-1.1B, or the bank tick over PLACEMENT_SHARDS row blocks;
+    ``only`` (step names) profiles those alone.
     Prints the wall time per step (without the profiler), the
     card's busy time per step (the sum of its kernel and copy times, from
     the profiler, which records ``steps`` steps after one warm-up step: the
@@ -2076,6 +2457,7 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     sk = HyperLogLog.empty(cfg, device).update(chunk, plan)
     bank = SketchBank.empty(rows, cfg, device).update_many(k_t, x_t, plan)
     b_idx, b_rank = hash_rank(x_t, cfg)
+    sharded_plan = plan.with_sharding(next(iter(_placement_meshes(device, PLACEMENT_SHARDS).values())))
     hcfg = HLLConfig(p=12, hash_bits=64)
     hkeys, hitems = _zipf_traffic(hybrid_rows, HYBRID_ITEMS_PER_ROW * hybrid_rows, rng)
     hk = torch.from_numpy(hkeys).to(device).tensor_split(HYBRID_CHUNKS)
@@ -2105,6 +2487,8 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     steps_fn = {
         "stream": lambda: sk.update(chunk, plan),
         "bank": lambda: bank.update_many(k_t, x_t, plan),
+        # the same tick over PLACEMENT_SHARDS row blocks of the one card
+        "bank_sharded": lambda: bank.update_many(k_t, x_t, sharded_plan),
         # the bank tick's kernel alone (the tiled kernel's passes)
         "bank_scatter_max": lambda: bank_scatter_max(bank.registers, k_t, b_idx, b_rank),
         "hybrid": lambda: hyb.update_many(hk[-1], hx[-1], plan).compact(),
@@ -2130,6 +2514,17 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
         last = batch["tokens"][:, -1]
         steps_fn["serve_prefill"] = lambda: engine.prefill(model, batch, arch, prompt_len + 2)
         steps_fn["serve_decode"] = lambda: engine.decode_step(model, cache, last, prompt_len, arch)
+    # attention serving at full width (TinyLlama-1.1B, the launcher's default)
+    if only is None or {"attn_prefill", "attn_decode"} & set(only):
+        aarch = get_arch(ATTN_ARCH)
+        agen = torch.Generator(device=device).manual_seed(SEED + 12)
+        amodel = transformer.init_params(aarch, agen, device)
+        abatch = {"tokens": torch.randint(0, aarch.vocab_size, (requests, prompt_len), generator=agen,
+                                          device=device, dtype=torch.int32)}
+        _, acache = engine.prefill(amodel, abatch, aarch, prompt_len + 2)
+        alast = abatch["tokens"][:, -1]
+        steps_fn["attn_prefill"] = lambda: engine.prefill(amodel, abatch, aarch, prompt_len + 2)
+        steps_fn["attn_decode"] = lambda: engine.decode_step(amodel, acache, alast, prompt_len, aarch)
     if only is not None:
         steps_fn = {name: steps_fn[name] for name in only}
     result = {}
@@ -2263,6 +2658,15 @@ def main() -> int:
     launch = _timed(phase_launch, device)
     obs = _timed(phase_obs, device)
 
+    reset_launches()
+    placement = _timed(phase_placement, device)
+    placement_launches = launch_counts()
+    print(f"[main path] placement path's launches {placement_launches}")
+    missing = [name for name in PLACEMENT_KERNELS if placement_launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the placement path: {missing}")
+    attn = _timed(phase_attn_serve, device)  # zeroes and reads the counts around each launcher run
+
     timing = _timed(phase_timing, device)
     _timed(phase_profile, device)
     best = max(stream["configs"], key=lambda r: r["items_per_s"]["cuda"])
@@ -2282,6 +2686,15 @@ def main() -> int:
     print(f"[timing] launcher {SERVE_ARCH} full width: prefill {launch['prefill_tokens_per_s']:.6g} tokens/s, "
           f"decode {launch['decode_tokens_per_s']:.6g} tokens/s, peak device memory "
           f"{launch['max_memory_allocated']} bytes; obs over passthrough {obs['over_passthrough']}")
+    print(f"[timing] placement, bank tick sharded over {placement['shards']} row blocks / local: ingest "
+          f"{placement['bank_ratio_sharded_over_local']['ingest']:.4g}, read "
+          f"{placement['bank_ratio_sharded_over_local']['read']:.4g}; block paths "
+          f"{placement['bank']['path_per_block']} (local {placement['bank']['path_local']})")
+    for name, runs in attn["launcher"].items():
+        print(f"[timing] launcher {ATTN_ARCH} full width, --placement {name}, two runs: prefill "
+              f"{[r['prefill_tokens_per_s'] for r in runs]} tokens/s, decode "
+              f"{[r['decode_tokens_per_s'] for r in runs]} tokens/s, peak device memory "
+              f"{[r['max_memory_allocated'] for r in runs]} bytes")
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -18,11 +18,16 @@ the same formats.
 A model's weights cross as the reference's parameter tree: nested dicts
 of float32 numpy arrays (``embed``, ``final_norm``, ``lm_head`` and per
 stage ``stage<i>/sub<j>/{norm1, norm2, mixer/..., channel/...}`` stacked
-over the stage's layers), bit for bit.  The RWKV decode cache crosses in
-the reference's layout too: ``s`` as float32 and the bf16 token-shift
-entries ``x_prev`` / ``cm_x_prev`` as float32 (exact) or as their uint16
-bits, since numpy has no bfloat16 that torch reads.  Converting JAX arrays
-to numpy is the caller's part.
+over the stage's layers), bit for bit: the RWKV6 mixers, and the
+attention mixers (``wq``/``wk``/``wv``/``wo`` in the reference's GQA head
+grouping, ``q_norm``/``k_norm`` with qk-norm; a tied head is the
+embedding) with their SwiGLU channel mixes.  The decode cache crosses in
+the reference's layout too (``cache_from_reference``): float32 entries as
+float32, bf16 entries (the RWKV token shifts, the K/V rings, the int8
+cache's scales) as float32 (exact) or as their uint16 bits, since numpy
+has no bfloat16 that torch reads, the int8 rings as int8 and the
+``kv_pos_<W>`` slot maps as int32.  Converting JAX arrays to numpy is the
+caller's part.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import common, rwkv6, transformer
+from repro_torch.models import transformer
+from repro_torch.serve import engine
 from repro_torch.sketch import hll
 from repro_torch.sketch.bank import SketchBank
 from repro_torch.sketch.carrier import HyperLogLog
@@ -251,8 +257,7 @@ def model_from_reference(params: Dict[str, object], arch: ArchConfig, device=Non
             kind,
             tensor(leaf(sub, sub_shapes, "norm1", where)[rep]),
             tensor(leaf(sub, sub_shapes, "norm2", where)[rep]),
-            rwkv6.TimeMix(parts["mixer"]),
-            rwkv6.ChannelMix(parts["channel"]),
+            *transformer.make_parts(kind, parts["mixer"], parts["channel"]),
         ))
     lm_head = None if arch.tie_embeddings else tensor(leaf(params, shapes, "lm_head", ""))
     return transformer.Model(tensor(leaf(params, shapes, "embed", "")),
@@ -267,17 +272,18 @@ def model_to_reference(model: transformer.Model, arch: ArchConfig) -> Dict[str, 
     out: Dict[str, object] = {"embed": array(model.embed), "final_norm": array(model.final_norm)}
     if not arch.tie_embeddings:
         out["lm_head"] = array(model.lm_head)
+    shapes = transformer.param_shapes(arch)
     blocks = {}
     for (si, rep, j, _), block in zip(transformer.sublayers(arch), model.layers):
         blocks.setdefault((si, j), []).append(block)
     for (si, j), stack in blocks.items():
+        sub_shapes = shapes[f"stage{si}"][f"sub{j}"]
         out.setdefault(f"stage{si}", {})[f"sub{j}"] = {
             "norm1": np.stack([array(b.norm1) for b in stack]),
             "norm2": np.stack([array(b.norm2) for b in stack]),
-            "mixer": {name: np.stack([array(b.mixer[name]) for b in stack])
-                      for name in rwkv6.param_shapes(arch)},
-            "channel": {name: np.stack([array(b.channel[name]) for b in stack])
-                        for name in rwkv6.channel_param_shapes(arch)},
+            **{part: {name: np.stack([array(getattr(b, part)[name]) for b in stack])
+                      for name in sub_shapes[part]}
+               for part in ("mixer", "channel")},
         }
     return out
 
@@ -296,34 +302,58 @@ def _bf16_from_reference(value, where: str) -> torch.Tensor:
     return out
 
 
-def rwkv_cache_from_reference(cache: Dict[str, object], arch: ArchConfig, device=None) -> Dict[str, object]:
-    """The port's RWKV decode cache from the reference's (see the module note)."""
+def cache_from_reference(cache: Dict[str, object], arch: ArchConfig, device=None) -> Dict[str, object]:
+    """The port's decode cache from the reference's, any family the port
+    runs: float32 entries (``s``) as float32, bf16 entries (``x_prev``,
+    ``cm_x_prev``, the K/V rings, the int8 cache's scales) as float32
+    values or uint16 bits, the int8 rings as int8, and the ``kv_pos_<W>``
+    slot maps, (W,) or (B, W), as int32."""
     device = hll.resolve_device(device)
-    out = {"stages": []}
-    for si, (pattern, repeats) in enumerate(transformer.layer_stages(arch)):
+    # the layout to expect: the port's own empty cache, on no device
+    batch = np.asarray(next(iter(cache["stages"][0]["sub0"].values()))).shape[1]
+    widths = [int(key.split("_")[-1]) for key in cache if key.startswith("kv_pos_")]
+    template = engine.init_cache(arch, batch, max(widths, default=1), device="meta")
+    out: Dict[str, object] = {"stages": []}
+    for si, (pattern, _) in enumerate(transformer.layer_stages(arch)):
         stage = {}
         for j, _ in enumerate(pattern):
-            entry, where = cache["stages"][si][f"sub{j}"], f"stages[{si}]/sub{j}"
-            n, d = arch.rwkv_head_dim, arch.d_model
-            s = np.asarray(entry["s"])
-            batch = s.shape[1] if s.ndim == 5 else -1
-            _float32_leaf(s, (repeats, batch, arch.n_heads, n, n), f"{where}/s")
-            moved = {"s": torch.from_numpy(np.array(s))}
-            for name in ("x_prev", "cm_x_prev"):
-                t = _bf16_from_reference(entry[name], f"{where}/{name}")
-                if tuple(t.shape) != (repeats, batch, d):
-                    raise ValueError(f"{where}/{name}: expected {(repeats, batch, d)}, got {tuple(t.shape)}")
-                moved[name] = t.to(common.ACT_DTYPE)
-            stage[f"sub{j}"] = {name: t.to(device) for name, t in moved.items()}
+            entries, where = cache["stages"][si][f"sub{j}"], f"stages[{si}]/sub{j}"
+            layout = template["stages"][si][f"sub{j}"]
+            if set(entries) != set(layout):
+                raise ValueError(f"{where}: entries {sorted(entries)}, expected {sorted(layout)}")
+            moved = {}
+            for name, value in entries.items():
+                if np.shape(value) != tuple(layout[name].shape):
+                    raise ValueError(f"{where}/{name}: expected {tuple(layout[name].shape)}, got {np.shape(value)}")
+                dtype = layout[name].dtype
+                if dtype == torch.bfloat16:
+                    t = _bf16_from_reference(value, f"{where}/{name}")
+                else:
+                    arr = np.asarray(value)
+                    want = np.float32 if dtype == torch.float32 else np.int8
+                    if arr.dtype != want:
+                        raise TypeError(f"{where}/{name}: expected {np.dtype(want)}, got {arr.dtype}")
+                    t = torch.from_numpy(np.array(arr))
+                moved[name] = t.to(device)
+            stage[f"sub{j}"] = moved
         out["stages"].append(stage)
+    for key, value in cache.items():
+        if key.startswith("kv_pos_"):
+            out[key] = torch.from_numpy(np.asarray(value).astype(np.int32)).to(device)
     return out
 
 
-def rwkv_cache_to_reference(cache: Dict[str, object]) -> Dict[str, object]:
-    """The reference's RWKV cache layout as numpy: ``s`` float32, the
-    token-shift entries float32 (their bf16 values, exactly)."""
-    return {"stages": [
-        {sub: {name: t.detach().cpu().float().numpy() for name, t in entry.items()}
-         for sub, entry in stage.items()}
+def cache_to_reference(cache: Dict[str, object]) -> Dict[str, object]:
+    """The reference's decode-cache layout as numpy: bf16 entries as float32
+    (their values, exactly), float32 and int8 entries as they are, the slot
+    maps as int32."""
+    def array(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    out: Dict[str, object] = {key: array(value) for key, value in cache.items() if key != "stages"}
+    out["stages"] = [
+        {sub: {name: array(t) for name, t in entry.items()} for sub, entry in stage.items()}
         for stage in cache["stages"]
-    ]}
+    ]
+    return out

@@ -1,1 +1,1 @@
-"""Launchers (port of ``repro/launch``): so far the serve driver."""
+"""Launchers (port of ``repro/launch``): the serve driver and the device meshes."""

@@ -1,21 +1,22 @@
 """Serving launcher: --arch selection, prefill + batched decode + telemetry.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
-        --requests 8 --prompt-len 64 --gen-len 32 [--reduced] \\
-        [--device cpu] [--metrics-out metrics.json]
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch tinyllama-1.1b] \\
+        --requests 8 --prompt-len 64 --gen-len 32 [--reduced | --full-config] \\
+        [--placement sharded] [--device cpu] [--metrics-out metrics.json]
 
 Port of ``repro/launch/serve.py``: the same flags, defaults, printed lines,
 spans, gauges and snapshot file.  The model runs on ``--device`` (the card
 by default; ``cpu`` runs every kernel's plain PyTorch version).  The port
-serves the RWKV6 family; the other families, the reference's default
-``--arch tinyllama-1.1b`` among them, raise ``NotImplementedError`` until
-the attention slice (ROADMAP A.12.1), so pass ``--arch rwkv6-3b``.
+serves the attention families (dense, vlm, audio; the default ``--arch
+tinyllama-1.1b``) and RWKV6; MoE and the RG-LRU hybrid raise
+``NotImplementedError`` until the next family slice (ROADMAP A.12.1).
 
 The sketch-telemetry ingest runs the production serve path (DESIGN.md
 §16): every request SUBMITS its token stream to a coalescing queue and the
 merged batch lands as ONE ``update_many`` per tick
-(repro_torch/serve/coalesce.py).  ``--placement sharded`` raises
-``NotImplementedError`` until the placement slice (ROADMAP A.10).  The
+(repro_torch/serve/coalesce.py); ``--placement sharded`` splits the banks'
+tenant-row axis over the process's devices (every visible card, or the one
+CPU) with block-local key routing, bit-identical to local placement.  The
 sliding-window ring is shared across requests through ``SharedWindowRing``
 so the §14 incremental fold state amortizes across the fleet instead of
 rebuilding per request.
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.launch.mesh import Mesh, make_auto_mesh
 from repro_torch.models import transformer
 from repro_torch.obs import metrics, tracing
 from repro_torch.obs.format import (
@@ -97,8 +99,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--placement", default="local",
                     choices=("local", "sharded"),
                     help="'sharded' splits the telemetry banks' tenant-row "
-                         "axis over devices (DESIGN.md §16); not ported yet "
-                         "(ROADMAP A.10), so it raises NotImplementedError")
+                         "axis over this process's devices with block-local "
+                         "key routing (DESIGN.md §16); bit-identical to "
+                         "'local'")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="enable the metrics registry (DESIGN.md §15) and "
                          "write the snapshot JSON here at exit")
@@ -127,6 +130,14 @@ def _prompts(args, arch, device) -> torch.Tensor:
                          device=device, dtype=torch.int32)
 
 
+def _data_mesh(device: torch.device) -> Mesh:
+    """A ("data",) mesh over the process's devices of ``device``'s kind:
+    every visible card, or the one CPU."""
+    if device.type == "cuda":
+        return make_auto_mesh((torch.cuda.device_count(),), ("data",))
+    return make_auto_mesh((1,), ("data",), [device])
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -144,8 +155,7 @@ def main(argv=None) -> None:
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
-    # an unported family raises here; the reference's M-RoPE positions and
-    # frontend embeddings come with the attention slice (ROADMAP A.12.1)
+    # an unported family (MoE, the RG-LRU hybrid) raises here
     model = _model(args, arch, device)
     # the plan's estimator rides to board.report(), which finalizes all
     # streams with one batched estimate_many dispatch; --topk adds the
@@ -167,13 +177,18 @@ def main(argv=None) -> None:
     # banks below ingest and finalize under the serve placement (§16)
     ingest_plan = board.plan
     if args.placement == "sharded":
-        # the plan refuses placement="sharded" with the placement slice's
-        # NotImplementedError (ROADMAP A.10)
-        ingest_plan = board.plan.with_sharding(None)
+        ingest_plan = board.plan.with_sharding(_data_mesh(device))
 
     B, S, T = args.requests, args.prompt_len, args.gen_len
     prompts = _prompts(args, arch, device)
     batch = {"tokens": prompts}
+    if arch.mrope:
+        batch["positions"] = transformer.default_positions(arch, B, S, device)
+    if arch.frontend_stub_len:
+        gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+        batch["frontend_embeds"] = torch.randn(
+            (B, arch.frontend_stub_len, arch.d_model), generator=gen, device=device
+        ).to(torch.bfloat16) * 0.02
 
     # each span ends with a device synchronize, so that the printed tok/s
     # are the card's: PyTorch returns before the card has finished

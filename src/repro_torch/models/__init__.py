@@ -1,6 +1,6 @@
 """The LLM host workloads the sketches ride in (port of ``repro/models``).
 
-So far the RWKV6 family: ``common``, ``rwkv6``, ``transformer`` and
-``registry``.  Attention, MoE and RG-LRU come with ROADMAP A.12's next
-slices.
+The attention families (dense, vlm, audio: ``attention``) and the RWKV6
+family (``rwkv6``), on ``common``, ``transformer`` and ``registry``.  MoE
+and RG-LRU come with ROADMAP A.12.1's next slice.
 """

@@ -25,7 +25,6 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rwkv_intra import rwkv_intra
@@ -36,23 +35,11 @@ DECAY_RANK = 64
 MIX_NAMES = ("w", "k", "v", "r", "g")  # ddlerp targets
 
 
-class Params(nn.Module):
-    """Frozen float32 parameters under given names, indexable like a dict."""
-
-    def __init__(self, params: Dict[str, torch.Tensor]):
-        super().__init__()
-        for name, value in params.items():
-            self.register_parameter(name, nn.Parameter(value, requires_grad=False))
-
-    def __getitem__(self, name: str) -> torch.Tensor:
-        return getattr(self, name)
-
-
-class TimeMix(Params):
+class TimeMix(common.Params):
     """The time-mix sublayer's parameters (``init_params``'s names)."""
 
 
-class ChannelMix(Params):
+class ChannelMix(common.Params):
     """The channel-mix sublayer's parameters (``init_channel_params``'s names)."""
 
 

@@ -1,13 +1,19 @@
 """Decoder backbone assembly: stages, parameters and the full-sequence forward.
 
-Port of ``repro/models/transformer.py`` for the RWKV6 family (``rwkv``
-sublayers: RWKV6 time mix + squared-ReLU channel mix).  Layers are grouped
-into *stages* -- (pattern, repeats) pairs -- as in the reference; the
-reference scans each stage over stacked parameters, the port keeps one
-``Block`` per sublayer in a flat layer list, in stage order, and runs them
-in a Python loop.  The ``attn`` and ``rec`` sublayers and MoE channel
-mixers raise ``NotImplementedError``: they come with the attention slice
-(ROADMAP A.12).  ``loss_fn`` waits for the training slice.
+Port of ``repro/models/transformer.py`` for the attention families
+(``attn`` sublayers: GQA attention with RoPE / M-RoPE, sliding windows and
+qk-norm, then a SwiGLU channel mix: dense, vlm and audio) and the RWKV6
+family (``rwkv`` sublayers: RWKV6 time mix + squared-ReLU channel mix).
+Layers are grouped into *stages* -- (pattern, repeats) pairs -- as in the
+reference; the reference scans each stage over stacked parameters, the
+port keeps one ``Block`` per sublayer in a flat layer list, in stage
+order, and runs them in a Python loop.  The ``rec`` (RG-LRU) sublayer and
+MoE channel mixers raise ``NotImplementedError``: they come with the next
+family slice (ROADMAP A.12.1).  ``loss_fn`` waits for the training slice.
+
+Modality frontends (audio frames / vision patches) are stubs, as in the
+reference: ``frontend_embeds`` enter as precomputed (B, stub_len, d)
+activations that overwrite the leading token embeddings.
 """
 
 from __future__ import annotations
@@ -18,12 +24,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import common, rwkv6
+from repro_torch.models import attention, common, rwkv6
 from repro_torch.sketch.hll import resolve_device
 
 
 def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A.12); the port runs the rwkv family")
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP A.12.1); the port runs the attention and rwkv families"
+    )
 
 
 # ----------------------------------------------------------------------------
@@ -55,12 +63,32 @@ def sublayers(arch: ArchConfig) -> List[Tuple[int, int, int, str]]:
     ]
 
 
+def _sublayer_window(kind: str, arch: ArchConfig) -> Optional[int]:
+    if arch.block_pattern is not None and kind == "attn":
+        return arch.local_window
+    return arch.sliding_window
+
+
 def _check_supported(arch: ArchConfig) -> None:
     if arch.moe is not None:
         raise _unported("the MoE channel mixer")
     for _, _, _, kind in sublayers(arch):
-        if kind != "rwkv":
+        if kind not in ("attn", "rwkv"):
             raise _unported(f"the {kind!r} sublayer")
+
+
+def _part_shapes(kind: str, arch: ArchConfig) -> Dict[str, Dict[str, tuple]]:
+    """The mixer's and the channel mix's parameter shapes of a ``kind`` sublayer."""
+    if kind == "rwkv":
+        return {"mixer": rwkv6.param_shapes(arch), "channel": rwkv6.channel_param_shapes(arch)}
+    return {"mixer": attention.param_shapes(arch), "channel": common.swiglu_shapes(arch.d_model, arch.d_ff)}
+
+
+def make_parts(kind: str, mixer: Dict[str, torch.Tensor], channel: Dict[str, torch.Tensor]):
+    """The mixer and channel-mix modules of a ``kind`` sublayer from their tensors."""
+    if kind == "rwkv":
+        return rwkv6.TimeMix(mixer), rwkv6.ChannelMix(channel)
+    return attention.Attention(mixer), common.SwiGLU(channel)
 
 
 # ----------------------------------------------------------------------------
@@ -72,7 +100,7 @@ class Block(nn.Module):
     """One pre-norm residual sublayer: two norms, a mixer, a channel mix."""
 
     def __init__(self, kind: str, norm1: torch.Tensor, norm2: torch.Tensor,
-                 mixer: rwkv6.TimeMix, channel: rwkv6.ChannelMix):
+                 mixer: common.Params, channel: common.Params):
         super().__init__()
         self.kind = kind
         self.norm1 = nn.Parameter(norm1, requires_grad=False)
@@ -107,10 +135,9 @@ def param_shapes(arch: ArchConfig) -> Dict[str, object]:
         shapes[f"stage{si}"] = {
             f"sub{j}": {
                 "norm1": (repeats, d), "norm2": (repeats, d),
-                "mixer": stacked(rwkv6.param_shapes(arch)),
-                "channel": stacked(rwkv6.channel_param_shapes(arch)),
+                **{part: stacked(tree) for part, tree in _part_shapes(kind, arch).items()},
             }
-            for j, _ in enumerate(pattern)
+            for j, kind in enumerate(pattern)
         }
     return shapes
 
@@ -125,11 +152,13 @@ def init_params(arch: ArchConfig, generator: torch.Generator, device=None) -> Mo
     layers = []
     for _, _, _, kind in sublayers(arch):
         ones = torch.ones((d,), dtype=common.PARAM_DTYPE, device=device)
-        layers.append(Block(
-            kind, ones, ones.clone(),
-            rwkv6.TimeMix(rwkv6.init_params(arch, generator, device)),
-            rwkv6.ChannelMix(rwkv6.init_channel_params(arch, generator, device)),
-        ))
+        if kind == "rwkv":
+            mixer = rwkv6.init_params(arch, generator, device)
+            channel = rwkv6.init_channel_params(arch, generator, device)
+        else:
+            mixer = attention.init_params(arch, generator, device)
+            channel = common.swiglu_init(generator, d, arch.d_ff, device)
+        layers.append(Block(kind, ones, ones.clone(), *make_parts(kind, mixer, channel)))
     return Model(embed, torch.ones((d,), dtype=common.PARAM_DTYPE, device=device), layers, lm_head)
 
 
@@ -141,23 +170,34 @@ def init_params(arch: ArchConfig, generator: torch.Generator, device=None) -> Mo
 def _apply_sublayer(kind: str, sub: Block, x: torch.Tensor, positions, arch: ArchConfig,
                     collect_state: bool):
     """Pre-norm residual sublayer. Returns (x, aux_loss, state_or_None)."""
-    if kind != "rwkv":
+    if kind not in ("attn", "rwkv"):
         raise _unported(f"the {kind!r} sublayer")
     h = common.rms_norm(x, sub.norm1, arch.norm_eps)
     state = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if arch.rwkv_chunk_size > 0:
-        mixed, rwkv_state = rwkv6.time_mix_chunked(sub.mixer, h, arch, chunk=arch.rwkv_chunk_size)
+    if kind == "attn":
+        # one projection serves the attention and the prefill's K/V cache
+        q, k, v = attention.qkv_project(sub.mixer, h, arch)
+        q, k = attention.apply_positions(q, k, positions, arch)
+        mixed = attention.attend(sub.mixer, q, k, v, positions, arch, window=_sublayer_window(kind, arch))
+        if collect_state:
+            state = {"k": k, "v": v}
     else:
-        mixed, rwkv_state = rwkv6.time_mix(sub.mixer, h, arch)
-    if collect_state:
-        state = {"s": rwkv_state, "x_prev": h[:, -1]}
+        if arch.rwkv_chunk_size > 0:
+            mixed, rwkv_state = rwkv6.time_mix_chunked(sub.mixer, h, arch, chunk=arch.rwkv_chunk_size)
+        else:
+            mixed, rwkv_state = rwkv6.time_mix(sub.mixer, h, arch)
+        if collect_state:
+            state = {"s": rwkv_state, "x_prev": h[:, -1]}
     x = x + mixed
 
     h2 = common.rms_norm(x, sub.norm2, arch.norm_eps)
-    ch = rwkv6.channel_mix(sub.channel, h2)
-    if collect_state:
-        state = dict(state, cm_x_prev=h2[:, -1])
+    if kind == "rwkv":
+        ch = rwkv6.channel_mix(sub.channel, h2)
+        if collect_state:
+            state = dict(state, cm_x_prev=h2[:, -1])
+    else:
+        ch = common.swiglu(sub.channel, h2)
     # the sequence-parallel constraint of the sharding slice (ROADMAP A.12)
     # goes here; on one device there is nothing to do
     return x + ch, aux, state

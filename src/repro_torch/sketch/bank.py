@@ -1,6 +1,6 @@
 """SketchBank: a stacked (B, m) register bank with keyed batched ingestion.
 
-Port of ``repro/sketch/bank.py`` (placement="local").  A ``SketchBank``
+Port of ``repro/sketch/bank.py``.  A ``SketchBank``
 carries B sketches that share one static ``HLLConfig`` -- (B, m) uint8
 registers plus a (B, 2) int64 tensor of (hi, lo) uint32 limbs counting each
 row's observations exactly -- and ``update_many(bank, keys, items, plan)``
@@ -35,6 +35,7 @@ import torch
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll, u64
 from repro_torch.sketch.carrier import HyperLogLog
+from repro_torch.sketch.dispatch import mesh_fold, row_shard_apply, row_shard_fold
 from repro_torch.sketch.hll import HLLConfig
 from repro_torch.sketch.plan import DEFAULT_PLAN, ExecutionPlan, get_bank_backend
 
@@ -88,7 +89,14 @@ def update_bank_registers(
     """Keyed scatter-max of ``items`` into a raw (B, m) register bank.
 
     The bank-capable backend registered under ``plan.backend`` runs the
-    fused update on the bank's device.
+    fused update on the bank's device; placement="mesh" shards the (keys,
+    items) pair through the same :func:`repro_torch.sketch.dispatch.mesh_fold`
+    rule as the single-sketch path (per-shard partial banks + one max fold,
+    edge-padding for non-divisible streams); placement="sharded" splits
+    the BANK'S ROW AXIS over the mesh instead and routes keys by re-basing
+    them into each shard's block (DESIGN.md §16) -- the §9 drop rule
+    discards foreign keys, so no fold is needed and bit-identity to local
+    holds row by row.
     """
     plan = (DEFAULT_PLAN if plan is None else plan).validate()
     backend = get_bank_backend(plan.backend)
@@ -96,7 +104,29 @@ def update_bank_registers(
     if flat_items.shape[0] == 0 or registers.shape[0] == 0:
         # nothing to land (or nowhere to land it): no backend dispatch
         return registers
-    return backend(registers, flat_keys, flat_items, cfg, plan)
+    if plan.placement == "local":
+        return backend(registers, flat_keys, flat_items, cfg, plan)
+
+    def apply(regs, ks, xs):
+        return backend(regs, ks, xs, cfg, plan)
+
+    if plan.placement == "sharded":
+        return row_shard_fold(plan, registers, flat_keys, (flat_items,), apply)
+    return mesh_fold(plan, registers, (flat_keys, flat_items), apply)
+
+
+def estimate_rows(registers: torch.Tensor, cfg: HLLConfig, estimator: Optional[str],
+                  plan: Optional[ExecutionPlan]) -> torch.Tensor:
+    """(B,) estimates of a (B, m) register bank under ``plan``'s placement:
+    per row block for placement="sharded" (§16), else one batched pass (§8)."""
+    from repro_torch.sketch import estimators as _estimators
+
+    def apply(regs):
+        return _estimators.estimate_many(regs, cfg, estimator=estimator)
+
+    if plan is not None and plan.placement == "sharded":
+        return row_shard_apply(plan, apply, (registers,), (0,))
+    return apply(registers)
 
 
 # ----------------------------------------------------------------------------
@@ -260,15 +290,18 @@ class SketchBank:
         estimator: Optional[str] = None,
         plan: Optional[ExecutionPlan] = None,
     ) -> torch.Tensor:
-        """(B,) float32 estimates in one batched pass on the bank's device."""
-        from repro_torch.sketch import estimators as _estimators
+        """(B,) float32 estimates in one batched pass on the bank's device.
 
+        Under a placement="sharded" ``plan`` each shard finalizes its own
+        row block (DESIGN.md §16) -- the histogram is per-row, so the
+        blocked read is the flat one row for row.
+        """
         if len(self) == 0:
             return torch.zeros((0,), dtype=torch.float32, device=self.device)
         name = estimator
         if plan is not None:
             name = estimator or plan.validate().estimator
-        return _estimators.estimate_many(self.registers, self.cfg, estimator=name)
+        return estimate_rows(self.registers, self.cfg, name, plan)
 
     def estimate(self, i: int, estimator: Optional[str] = None) -> float:
         """Exact host-side estimate of one row."""

@@ -148,8 +148,10 @@ def update_cm_counters(
     """Keyed scatter-add of ``items`` into a raw (B, d, w) int32 counter bank.
 
     The cm-capable backend registered under ``plan.backend`` runs the fused
-    ingest; placement="mesh" goes through :func:`dispatch.cm_mesh_sum`,
-    which waits for the placement slice (ROADMAP A.10).
+    ingest; placement="mesh" (and "sharded", which has no row rule for
+    additive state) shards the (keys, items) pair through
+    :func:`repro_torch.sketch.dispatch.cm_mesh_sum` (per-shard zero-based
+    deltas, keys padded with -1, one wrapping sum).
     """
     plan = (DEFAULT_PLAN if plan is None else plan).validate()
     backend = get_cm_backend(plan.backend)

@@ -13,9 +13,21 @@ window merge, the HybridBank sparse dedup, and the count-min pair (ingest
              "cuda_pipelined"   k fused CUDA launches + the bucket-fold
                                 kernel (paper Fig. 3 built from kernels;
                                 the reference's "pallas_pipelined")
-  placement  "local"            one device; "mesh" and "sharded" raise
-                                NotImplementedError until the placement
-                                slice (ROADMAP A.10) ports them
+  placement  "local"            one device
+             "mesh"             items sharded over ``data_axes`` of ``mesh``
+                                (``repro_torch.launch.mesh.Mesh``); each
+                                shard's partial state is folded by max onto
+                                the caller's device
+             "sharded"          the BANK'S ROW AXIS sharded over ``data_axes``
+                                of ``mesh`` (DESIGN.md §16): every shard owns
+                                a block of tenant rows, the keyed stream is
+                                re-based into block-local coordinates and the
+                                §9 drop rule discards foreign keys -- routing
+                                without a collective.  Surfaces with no row
+                                axis (single-sketch updates, count-min ingest)
+                                degrade to the mesh stream-sharding rule,
+                                which is bit-identical by the same lattice
+                                laws.
   pipelines  k sub-sketch lanes per device (paper Fig. 3); every backend
              produces registers bit-identical to the k=1 reference because
              max is associative/commutative/idempotent (DESIGN.md §6).
@@ -385,12 +397,6 @@ class ExecutionPlan:
             raise ValueError(
                 f"placement must be one of {PLACEMENTS}, got {self.placement!r}"
             )
-        if self.placement != "local":
-            raise NotImplementedError(
-                f"placement={self.placement!r} is not ported yet: the port "
-                f"runs placement='local' only until the placement slice "
-                f"(ROADMAP A.10) brings mesh and row-sharded banks"
-            )
         if self.pipelines < 1:
             raise ValueError(f"pipelines must be >= 1, got {self.pipelines}")
         if self.interpret:
@@ -402,12 +408,21 @@ class ExecutionPlan:
             raise ValueError(
                 f"sparse_threshold must be >= 1, got {self.sparse_threshold}"
             )
+        if self.placement in ("mesh", "sharded") and self.mesh is None:
+            raise ValueError(f"placement={self.placement!r} requires a mesh")
         object.__setattr__(self, "data_axes", tuple(self.data_axes))
 
     def validate(self) -> "ExecutionPlan":
         """Check backend + estimator exist (deferred so plans build early)."""
         get_backend(self.backend)
         get_estimator(self.estimator)
+        if self.placement in ("mesh", "sharded"):
+            missing = set(self.data_axes) - set(self.mesh.axis_names)
+            if missing:
+                raise ValueError(
+                    f"data_axes {sorted(missing)} not in mesh axes "
+                    f"{self.mesh.axis_names}"
+                )
         return self
 
     def with_mesh(self, mesh, data_axes=("data",)) -> "ExecutionPlan":
@@ -416,6 +431,7 @@ class ExecutionPlan:
         )
 
     def with_sharding(self, mesh, data_axes=("data",)) -> "ExecutionPlan":
+        """Row-sharded placement (DESIGN.md §16): bank rows over ``mesh``."""
         return dataclasses.replace(
             self, placement="sharded", mesh=mesh, data_axes=tuple(data_axes)
         )
@@ -429,15 +445,16 @@ def reference_plan() -> ExecutionPlan:
     return ExecutionPlan(backend="torch", placement="local", pipelines=1)
 
 
-def example_plans() -> Tuple[ExecutionPlan, ...]:
-    """One representative plan per registered backend, at k = 1, 4, 8.
+def example_plans(mesh=None) -> Tuple[ExecutionPlan, ...]:
+    """One representative plan per registered backend (x placements).
 
     The equivalence tests iterate this, so any newly registered backend is
-    automatically held to bit-identity with the reference.  (The
-    reference's ``mesh`` argument returns with the placement slice.)
+    automatically held to bit-identity with the reference.
     """
-    return tuple(
-        ExecutionPlan(backend=name, pipelines=k)
-        for name in available_backends()
-        for k in (1, 4, DEFAULT_PIPELINES)
-    )
+    plans = []
+    for name in available_backends():
+        for k in (1, 4, DEFAULT_PIPELINES):
+            plans.append(ExecutionPlan(backend=name, pipelines=k))
+        if mesh is not None:
+            plans.append(ExecutionPlan(backend=name, pipelines=2).with_mesh(mesh))
+    return tuple(plans)

@@ -66,6 +66,7 @@ from repro_torch.sketch.bank import (
     _counter_add_rows,
     _flat_keys_items,
     _routed_counts,
+    estimate_rows,
     update_bank_registers,
 )
 from repro_torch.sketch.carrier import HyperLogLog
@@ -749,9 +750,9 @@ class HybridBank:
         the closed-form LinearCounting read; other estimators (or
         ``lc_fast=False``) build histograms from the pairs and run the
         registered device finalizer.  Dense rows finalize through the §8
-        batched ``estimate_many``.  (The reference's placement="sharded"
-        branch for the dense block waits for ROADMAP A.10; the plan refuses
-        that placement.)
+        batched ``estimate_many``, per row block under a
+        placement="sharded" ``plan`` (§16); the sparse side is COO math
+        with no row axis on the device, so placement cannot move it.
         """
         from repro_torch.sketch import estimators as _estimators
 
@@ -768,7 +769,7 @@ class HybridBank:
             sparse_est = _estimators.get_estimator(name).device(hist, s.cfg)
         d = int(s.dense_block.shape[0])
         if d:
-            dense_est = _estimators.estimate_many(s.dense_block, s.cfg, estimator=name)
+            dense_est = estimate_rows(s.dense_block, s.cfg, name, plan)
             slot = torch.clamp(s.slot_map, 0, d - 1)
             return torch.where(s.slot_map >= 0, dense_est[slot], sparse_est)
         return sparse_est

@@ -51,7 +51,8 @@ import torch
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll, u64
-from repro_torch.sketch.bank import _BANK_HEADER, SketchBank
+from repro_torch.sketch.bank import _BANK_HEADER, SketchBank, estimate_rows
+from repro_torch.sketch.dispatch import row_shard_apply
 from repro_torch.sketch.hll import HLLConfig
 from repro_torch.sketch.plan import (
     DEFAULT_PLAN,
@@ -99,22 +100,28 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _ring_fold(backend, ring, mask, cfg, plan: ExecutionPlan):
-    # the reference's placement="sharded" branch (row-block shard_map)
-    # waits for ROADMAP A.10; the plan refuses that placement
+    """One masked ring fold under ``plan``'s placement.
+
+    Folds are per-row maps over the bank axis (dim 1 of the (W, B, m)
+    ring), so placement="sharded" runs the SAME backend on each shard's
+    row block (DESIGN.md §16) -- the flat fold row for row; every other
+    placement folds the whole ring as-is.
+    """
+    if plan.placement == "sharded":
+        # the mask goes whole to every block (in_dim None)
+        return row_shard_apply(
+            plan, lambda r, m: backend(r, m, cfg, plan), (ring, mask), (1, None)
+        )
     return backend(ring, mask, cfg, plan)
 
 
 def _parts_merge(parts, cfg, plan: ExecutionPlan):
-    # sharded branch deferred to ROADMAP A.10, as in _ring_fold
-    return get_window_merge_backend(plan.backend)(parts, cfg, plan)
-
-
-def _finalize_many(folded, cfg, plan: ExecutionPlan, estimator):
-    """Batched finalization of a folded (B, m) scratch bank (§8); the
-    sharded per-row-block branch waits for ROADMAP A.10."""
-    from repro_torch.sketch import estimators as _estimators
-
-    return _estimators.estimate_many(folded, cfg, estimator=estimator or plan.estimator)
+    """Merge (K, B, m) fold fragments under ``plan``'s placement -- the
+    sharded mirror of :func:`_ring_fold` for the §14 incremental read."""
+    merge = get_window_merge_backend(plan.backend)
+    if plan.placement == "sharded":
+        return row_shard_apply(plan, lambda p: merge(p, cfg, plan), (parts,), (1,))
+    return merge(parts, cfg, plan)
 
 
 class _RingReads:
@@ -382,7 +389,7 @@ class WindowedBank(_RingReads):
         """(B,) float32 distinct counts over the ``last_k`` newest epochs."""
         folded = self._fold_registers(self._check_last_k(last_k), plan)
         plan = DEFAULT_PLAN if plan is None else plan
-        return _finalize_many(folded, self.cfg, plan, estimator)
+        return estimate_rows(folded, self.cfg, estimator or plan.estimator, plan)
 
     def _fold_registers(self, last_k: int, plan: Optional[ExecutionPlan]) -> torch.Tensor:
         """(B, m) fold of the ``last_k`` newest epochs -- cached, and O(1)
@@ -399,6 +406,8 @@ class WindowedBank(_RingReads):
         if not _concrete():
             return _ring_fold(backend, self.registers, self._live_mask(last_k), self.cfg, plan)
         cache = self.__dict__.setdefault("_fold_cache", {})
+        # no mesh in the key: a fold is a per-row map, so every mesh (and
+        # every placement) gives the same registers by construction
         key = (last_k, plan.backend, plan.pipelines, plan.placement)
         hit = cache.get(key)
         if hit is not None:
@@ -976,7 +985,7 @@ class MultiResWindowedBank:
         plan = (DEFAULT_PLAN if plan is None else plan).validate()
         backend = get_window_backend(plan.backend)
         cacheable = _concrete()
-        key = (last_k, plan.backend, plan.pipelines, plan.placement)
+        key = (last_k, plan.backend, plan.pipelines, plan.placement)  # no mesh: as in WindowedBank
         if cacheable:
             cache = self.__dict__.setdefault("_fold_cache", {})
             hit = cache.get(key)
@@ -1003,7 +1012,7 @@ class MultiResWindowedBank:
         epochs -- rounded up to bucket edges at the tail."""
         folded = self._fold_registers(self._check_last_k(last_k), plan)
         plan = DEFAULT_PLAN if plan is None else plan
-        return _finalize_many(folded, self.cfg, plan, estimator)
+        return estimate_rows(folded, self.cfg, estimator or plan.estimator, plan)
 
     def fold_window(self, last_k: Optional[int] = None, plan: Optional[ExecutionPlan] = None) -> SketchBank:
         """The covered suffix collapsed to a flat ``SketchBank``."""

@@ -46,6 +46,8 @@ from repro_torch.sketch import (
     update_cm_counters,
 )
 from repro_torch.sketch.countmin import cm_hash_index
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.sketch.backends import cm_update_torch
 from repro_torch.sketch.dispatch import cm_mesh_sum
 
 PORT_PLANS = ("torch", "cuda", "cuda_pipelined")
@@ -336,10 +338,16 @@ def test_cell_space_guard_mesh_placement_and_validation():
     with pytest.raises(ValueError, match="overflows int32"):
         update_cm_counters(torch.zeros((8, 1, 1), dtype=torch.int32).expand(8, 16, 1 << 24), [0], [1], wide,
                            ExecutionPlan(backend="torch"))
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         ExecutionPlan(placement="mesh")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        cm_mesh_sum(ExecutionPlan(), None, (), None)
+    # the mesh rule: keys padded with -1, per-shard zero deltas, one sum
+    mesh_plan = ExecutionPlan(backend="torch").with_mesh(make_test_mesh((4,), ("data",), device="cpu"))
+    keys, items = _stream(1001, ROWS, 9)
+    zero = torch.zeros((ROWS, CFG.depth, CFG.width), dtype=torch.int32)
+    want = update_cm_counters(zero, keys, items, CFG, ExecutionPlan(backend="torch"))
+    got = cm_mesh_sum(mesh_plan, zero, tuple(torch.from_numpy(a) for a in (keys, items)),
+                      lambda cnt, ks, xs: cm_update_torch(cnt, ks, xs, CFG))
+    assert torch.equal(got, want)
     for bad in (dict(depth=0), dict(depth=17), dict(width=0), dict(width=(1 << 24) + 1), dict(seed=-1)):
         with pytest.raises(ValueError):
             CMConfig(**bad)

@@ -169,14 +169,14 @@ def test_cache_round_trips_bit_for_bit(ref):
     as_bits = {"stages": [{"sub0": {k: (np.asarray(v).view(np.uint16) if v.dtype == jnp.bfloat16 else np.asarray(v))
                                     for k, v in entry.items()}}]}
     for crossing in (as_f32, as_bits):
-        port = interop.rwkv_cache_from_reference(crossing, arch, "cpu")
+        port = interop.cache_from_reference(crossing, arch, "cpu")
         assert port["stages"][0]["sub0"]["x_prev"].dtype == torch.bfloat16
-        back = interop.rwkv_cache_to_reference(port)["stages"][0]["sub0"]
+        back = interop.cache_to_reference(port)["stages"][0]["sub0"]
         for name, want in as_f32["stages"][0]["sub0"].items():
             assert back[name].dtype == np.float32 and np.array_equal(back[name], want)
     bad = {"stages": [{"sub0": dict(as_f32["stages"][0]["sub0"], x_prev=as_f32["stages"][0]["sub0"]["x_prev"] + 1e-3)}]}
     with pytest.raises(ValueError, match="not bf16 values"):
-        interop.rwkv_cache_from_reference(bad, arch, "cpu")
+        interop.cache_from_reference(bad, arch, "cpu")
 
 
 def test_entry_points_default_to_the_card():

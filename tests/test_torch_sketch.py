@@ -22,6 +22,7 @@ from repro.sketch import hll as ref_hll
 from repro.sketch import reference_plan as ref_reference_plan
 from repro.sketch.hll import HLLConfig as RefConfig
 from repro_torch import interop
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.sketch import (
     DEFAULT_PLAN,
     ExecutionPlan,
@@ -161,10 +162,11 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_plan_refuses_what_the_port_does_not_do():
-    with pytest.raises(NotImplementedError, match="placement slice"):
-        ExecutionPlan(placement="mesh", mesh=object())
-    with pytest.raises(NotImplementedError, match="placement slice"):
-        ExecutionPlan().with_sharding(object())
+    with pytest.raises(ValueError, match="requires a mesh"):
+        ExecutionPlan(placement="mesh")
+    mesh = make_test_mesh((2, 2), ("data", "model"), device="cpu")
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        ExecutionPlan().with_sharding(mesh, data_axes=("rows",)).validate()
     with pytest.raises(ValueError, match="placement must be one of"):
         ExecutionPlan(placement="nowhere")
     with pytest.raises(ValueError, match="interpret mode"):

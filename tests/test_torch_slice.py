@@ -5,8 +5,9 @@
   bank, counters, bytes and estimates; likewise one single-sketch stream,
   and one epoch stream through a HybridBank and a WindowedBank.
 * ``chip_smoke.py``'s phases (kernels, stream, bank, hybrid, window,
-  countmin, cm_window, board, serve, launch, obs) rehearsed at a tiny size
-  on the CPU (serve and launch: the reduced RWKV6-3B), where every kernel
+  countmin, cm_window, board, serve, launch, obs, placement, attn_serve)
+  rehearsed at a tiny size on the CPU (serve and launch: the reduced
+  RWKV6-3B; attn_serve: the reduced TinyLlama-1.1B), where every kernel
   wrapper runs its plain version.
 * ``import repro_torch``, its model and serve modules and ``import
   chip_smoke`` pull in no ``jax`` and nothing of ``repro``.
@@ -152,6 +153,31 @@ def test_chip_smoke_launch_and_obs_phases_rehearse_on_the_cpu(tmp_path):
     assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
 
 
+def test_chip_smoke_placement_and_attn_serve_phases_rehearse_on_the_cpu(tmp_path):
+    from repro_torch.obs import metrics
+
+    reset_launches()
+    placement = chip_smoke.phase_placement(
+        "cpu", rows=37, tick_items=1001, p=8, hybrid_rows=64, hybrid_items_per_row=40, window=6, window_rows=11,
+        window_epochs=9, epoch_items=500, cm_rows=13, cm_depth=3, cm_width=64, cm_items=1000, stream_chunks=3,
+        stream_items=1000, repeats=2)
+    assert placement["meshes"] == ["4-shard", "1-device"] and len(placement["bank"]["path_per_block"]) == 4
+    assert {name: len(w["ingest_s"]) for name, w in placement["bank"]["walls"].items()} == {
+        "local": 2, "sharded 4-shard": 2}
+    arch = chip_smoke.get_arch(chip_smoke.ATTN_ARCH).reduced()
+    args = ("--arch", chip_smoke.ATTN_ARCH, "--requests", "3", "--prompt-len", "64", "--gen-len", "2")
+    attn = chip_smoke.phase_attn_serve("cpu", args=args, arch=arch, out_dir=tmp_path, check_prompt=40,
+                                       check_steps=4, swa_window=16, batch_prompts=(5, 12, 30, 9, 17, 3),
+                                       batch_new=4)
+    assert {k: len(v) for k, v in attn["launcher"].items()} == {"local": 2, "sharded": 2} and not metrics.enabled()
+    errs = attn["against_forward_max_abs_err"]
+    assert max(errs["f32"].values()) <= chip_smoke.ATTN_F32_ATOL
+    assert max(errs["f32 swa"].values()) <= chip_smoke.ATTN_F32_ATOL
+    assert attn["batcher"]["tokens"] == 24 and attn["batcher"]["worst_gap"] <= chip_smoke.ATTN_BATCH_TIE
+    # on the CPU the wrappers run their plain versions and never count a launch
+    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+
+
 def test_chip_smoke_control_catches_a_wrong_intra_term(monkeypatch):
     # a kernel off by more than the sums' last places fails the serve check
     arch = chip_smoke.get_arch(chip_smoke.SERVE_ARCH).reduced()
@@ -189,6 +215,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.telemetry, repro_torch.configs, repro_torch.models.rwkv6\n"
         "import repro_torch.models.transformer, repro_torch.models.registry, repro_torch.serve.engine\n"
         "import repro_torch.obs, repro_torch.serve.coalesce, repro_torch.launch.serve\n"
+        "import repro_torch.launch.mesh, repro_torch.models.attention, repro_torch.serve.kvquant\n"
+        "import repro_torch.serve.scheduler, repro_torch.sketch.dispatch\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
