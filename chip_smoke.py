@@ -173,6 +173,32 @@ raises (exit code 1) when it fails:
            at full width in float32, each request's tokens held to its solo
            decode (a token may differ only where solo's top logit leads it
            by at most 1e-3; the agreement is printed).
+  family_serve  the MoE and RG-LRU hybrid families: olmoe-1b-7b unreduced
+           (16 layers, d 2048, 64 experts of 1024, top-8, vocab 50304; 6.9 B
+           float32 parameters drawn on the card) and recurrentgemma-9b
+           unreduced (38 layers as 12 x (rec, rec, attn) + 2 rec, d 4096,
+           MQA, local window 2048, vocab 256000, tied; 9.4 B) through
+           ``repro_torch.launch.serve.main`` with the launch phase's traffic,
+           every kernel of ATTN_LAUNCH_KERNELS launched in each run; prints
+           prefill and decode tokens/s, peak device memory and, for olmoe,
+           the (token, choice) pairs each prefill layer dropped past capacity
+           (groups of 1024 tokens, capacity 160); the layer-0 assignment
+           stream of that prefill (``moe.assignment_stream``) on a
+           StreamSketch within 4 sigma of its exact distinct pairs, and a
+           collapsed stream (every choice -> expert 0) below it / 1.5.  At
+           full width over 2 layers (olmoe-1b-7b, mixtral-8x7b) and 3
+           (recurrentgemma-9b): prefill of 248 tokens + 8 teacher-forced
+           decode steps against forward in float32 (atol 2e-3) and bf16
+           (atol 0.15; for MoE up to the first position whose routing
+           differs from forward's, which must be a near-tie: the swapped
+           experts' forward logits no further apart than twice the change
+           of that token's logits), every routing of both legs equal to its
+           float64 recomputation from the same router logits, again over
+           1024-token groups where capacity drops; the RG-LRU scan over 1024
+           tokens within 4e-6 of the largest |h| of a float64 sequential
+           scan; a ContinuousBatcher of 6 prompts of 37-511 tokens over 4
+           slots at full width in float32 for olmoe-1b-7b and
+           recurrentgemma-9b, held to solo decodes as in attn_serve.
   timing   each kernel's device time (CUDA events over warm launches
            queued back to back) and host time per call, its bound (the
            larger of bytes over 3.35 TB/s and float32 operations over
@@ -190,8 +216,9 @@ raises (exit code 1) when it fails:
            over 4 row blocks) and their bank_scatter_max alone, hybrid
            ticks, full-window reads, count-min ticks, their label votes
            alone and their cm_scatter_add alone, full-window reads of the
-           count-min ring, full-width RWKV6-3B and TinyLlama-1.1B
-           prefills and decode steps,
+           count-min ring, full-width RWKV6-3B, TinyLlama-1.1B,
+           olmoe-1b-7b and recurrentgemma-9b prefills and decode steps (one
+           model on the card at a time),
            after a warm-up step: wall and device-busy time per step, idle
            share, top device entries.
 
@@ -204,8 +231,9 @@ chunk divides.  They are zeroed once more just before the launch phase's
 run and read just after it; every kernel of LAUNCH_KERNELS must have
 launched there.  They are zeroed just before the placement phase and read
 just after; every kernel of PLACEMENT_KERNELS must have launched there;
-and just before and after each launcher run of the attn_serve phase, where
-every kernel of ATTN_LAUNCH_KERNELS must have launched.  After the kernels
+and just before and after each launcher run of the attn_serve and
+family_serve phases, where every kernel of ATTN_LAUNCH_KERNELS must have
+launched.  After the kernels
 phase it checks that the count-min main
 path's shapes take the tiled cm_scatter_add, and the bank tick the tiled
 bank_scatter_max.
@@ -284,7 +312,8 @@ from repro_torch.sketch.countmin import _label_update, cm_hash_index  # noqa: E4
 from repro_torch.sketch.murmur3 import murmur3_32_py, murmur3_64_py  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
-from repro_torch.models import rwkv6, transformer  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import rglru, rwkv6, transformer  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 from repro_torch.telemetry import StreamSketch  # noqa: E402
 
@@ -1879,20 +1908,36 @@ def _launcher_run(device, argv, snap_path: Path) -> dict:
     }
 
 
-def _against_forward(model, arch, toks, steps: int, atol: float, what: str) -> float:
-    """Prefill of all but ``steps`` tokens, then teacher-forced decode steps,
-    against forward over all of them: the largest logit difference of each."""
-    s = toks.shape[1] - steps
-    with torch.inference_mode():
-        full, _, _ = transformer.forward(model, {"tokens": toks}, arch)
-    pre, cache = engine.prefill(model, {"tokens": toks[:, :s]}, arch, toks.shape[1])
-    err = {"prefill": float((pre.float() - full[:, :s].float()).abs().max()), "decode": 0.0}
-    for t in range(steps):
-        step, cache = engine.decode_step(model, cache, toks[:, s + t], s + t, arch)
-        err["decode"] = max(err["decode"], float((step - full[:, s + t].float()).abs().max()))
-    if not max(err.values()) <= atol or not bool(torch.isfinite(full).all()):
-        raise AssertionError(f"{what}: prefill + decode differ from forward by {err} (atol {atol})")
-    return err
+def _batcher_against_solo(model, arch, prompts, slots: int, new: int, what: str) -> dict:
+    """A ContinuousBatcher of ``prompts`` over ``slots`` slots, each request's
+    tokens held to its solo prefill + decode: a token may differ from solo's
+    greedy choice only where solo's top logit leads it by at most
+    ATTN_BATCH_TIE (cuBLAS may pick other GEMMs for other batch sizes)."""
+    from repro_torch.serve import scheduler
+
+    device = model.embed.device
+    kv_len = max(len(p) for p in prompts) + new + 1
+    batcher = scheduler.ContinuousBatcher(model, arch, n_slots=slots, kv_len=kv_len)
+    for i, prompt in enumerate(prompts):
+        batcher.submit(scheduler.Request(uid=i, prompt=prompt, max_new=new))
+    got = batcher.run()
+    agree, total, worst_tie = 0, 0, 0.0
+    for i, prompt in enumerate(prompts):
+        logits, cache = engine.prefill(model, {"tokens": torch.from_numpy(prompt[None]).to(device)}, arch, kv_len)
+        step = logits[0, -1].float()
+        pos = len(prompt)
+        for j, tok in enumerate(got[i]):
+            gap = float(step.max() - step[tok])
+            agree += gap == 0.0
+            total += 1
+            worst_tie = max(worst_tie, gap)
+            if gap > ATTN_BATCH_TIE:
+                raise AssertionError(f"{what} batcher request {i} token {j}: {tok} trails solo's greedy by {gap}")
+            if j + 1 < len(got[i]):
+                logits, cache = engine.decode_step(
+                    model, cache, torch.tensor([tok], dtype=torch.int32, device=device), pos, arch)
+                step, pos = logits[0], pos + 1
+    return {"requests": len(prompts), "slots": slots, "tokens": total, "solo_agree": agree, "worst_gap": worst_tie}
 
 
 def phase_attn_serve(device, args=ATTN_LAUNCH_ARGS, kernels=ATTN_LAUNCH_KERNELS, arch=None, out_dir: Path = BUILD,
@@ -1907,8 +1952,6 @@ def phase_attn_serve(device, args=ATTN_LAUNCH_ARGS, kernels=ATTN_LAUNCH_KERNELS,
     sliding window under the prompt (the ring wraps) and with the int8
     cache; and a ContinuousBatcher of mixed prompts over fewer slots than
     requests, in float32, each request's tokens held to its solo decode."""
-    from repro_torch.serve import scheduler
-
     on_card = torch.device(device).type == "cuda"
     out_dir.mkdir(parents=True, exist_ok=True)
     out = {"arch": ATTN_ARCH}
@@ -1946,7 +1989,7 @@ def phase_attn_serve(device, args=ATTN_LAUNCH_ARGS, kernels=ATTN_LAUNCH_KERNELS,
     ):
         model = transformer.init_params(leg_arch, torch.Generator(device=device).manual_seed(SEED), device)
         with _activations(dtype):
-            legs[leg] = _against_forward(model, leg_arch, toks, check_steps, atol, f"attn {leg}")
+            legs[leg] = _family_leg(model, leg_arch, toks, check_steps, atol, False, f"attn {leg}")
         del model
     out["against_forward_max_abs_err"] = legs
 
@@ -1955,32 +1998,277 @@ def phase_attn_serve(device, args=ATTN_LAUNCH_ARGS, kernels=ATTN_LAUNCH_KERNELS,
         model = transformer.init_params(full, torch.Generator(device=device).manual_seed(SEED), device)
         rng = np.random.default_rng(SEED + 22)
         prompts = [rng.integers(0, full.vocab_size, n, dtype=np.int32) for n in batch_prompts]
-        kv_len = max(batch_prompts) + batch_new + 1
-        batcher = scheduler.ContinuousBatcher(model, full, n_slots=batch_slots, kv_len=kv_len)
-        for i, prompt in enumerate(prompts):
-            batcher.submit(scheduler.Request(uid=i, prompt=prompt, max_new=batch_new))
-        got = batcher.run()
-        agree, total, worst_tie = 0, 0, 0.0
-        for i, prompt in enumerate(prompts):
-            logits, cache = engine.prefill(model, {"tokens": torch.from_numpy(prompt[None]).to(device)}, full,
-                                           kv_len)
-            step = logits[0, -1].float()
-            pos = len(prompt)
-            for j, tok in enumerate(got[i]):
-                gap = float(step.max() - step[tok])
-                agree += gap == 0.0
-                total += 1
-                worst_tie = max(worst_tie, gap)
-                if gap > ATTN_BATCH_TIE:
-                    raise AssertionError(f"batcher request {i} token {j}: {tok} trails solo's greedy by {gap}")
-                if j + 1 < len(got[i]):
-                    logits, cache = engine.decode_step(
-                        model, cache, torch.tensor([tok], dtype=torch.int32, device=device), pos, full)
-                    step, pos = logits[0], pos + 1
+        out["batcher"] = _batcher_against_solo(model, full, prompts, batch_slots, batch_new, "attn")
         del model
-    out["batcher"] = {"requests": len(prompts), "slots": batch_slots, "tokens": total, "solo_agree": agree,
-                      "worst_gap": worst_tie}
     print(f"[attn_serve] {json.dumps(out)}")
+    return out
+
+
+FAMILY_LAUNCH_ARCHS = ("olmoe-1b-7b", "recurrentgemma-9b")  # unreduced through the launcher
+FAMILY_CHECK_LAYERS = {"olmoe-1b-7b": 2, "mixtral-8x7b": 2, "recurrentgemma-9b": 3}  # a whole (rec, rec, attn)
+# prefill 248 + 8 decode steps: MoE groups of at most 256 tokens route
+# drop-free, so forward and prefill + decode route the same tokens alike
+FAMILY_CHECK_PROMPT, FAMILY_CHECK_STEPS = 248, 8
+FAMILY_BATCH_ARCHS = ("olmoe-1b-7b", "recurrentgemma-9b")
+SCAN_RTOL = 4e-6  # of the largest |h|: the prefix tree rounds partial sums of that size
+
+
+@contextlib.contextmanager
+def _routing_log(logits: bool = False):
+    """Every ``moe.route`` call inside the block, in call order: the group
+    size, capacity, assignments and keep mask (and, with ``logits``, the
+    router logits the call computed, recomputed by the same product)."""
+    calls = []
+    original = moe_lib.route
+
+    def spy(params, xt, arch, cap):
+        r = original(params, xt, arch, cap)
+        entry = {"tg": xt.shape[1], "cap": cap, "expert_idx": r.expert_idx, "keep": r.keep}
+        if logits:
+            entry["logits"] = (xt @ params["router"].to(xt.dtype)).float()
+        calls.append(entry)
+        return r
+
+    moe_lib.route = spy
+    try:
+        yield calls
+    finally:
+        moe_lib.route = original
+
+
+def _routing_float64(logits: torch.Tensor, k: int, cap: int):
+    """The reference's routing recomputed in float64 from router logits
+    (G, Tg, E): the top k of the float64 softmax, the lower index first
+    among ties, and each choice's queue position found by a stable sort of
+    the choices by expert (token-major, choice-minor within an expert)."""
+    probs = torch.softmax(logits.double(), dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
+    g, tg, e = logits.shape
+    flat = order.reshape(g, tg * k)
+    by_expert = torch.sort(flat, dim=1, stable=True)
+    starts = torch.searchsorted(by_expert.values, torch.arange(e, device=logits.device).expand(g, e).contiguous())
+    ranks = torch.arange(tg * k, device=logits.device).expand(g, -1) - torch.gather(starts, 1, by_expert.values)
+    slot = torch.empty_like(flat).scatter_(1, by_expert.indices, ranks)
+    return order, (slot < cap).reshape(g, tg, k)
+
+
+def _check_routing_float64(calls, arch, what: str) -> int:
+    """Every logged call's assignments and keep mask equal to the float64
+    recomputation from its own router logits; returns the dropped choices."""
+    dropped = 0
+    for i, call in enumerate(calls):
+        order, keep = _routing_float64(call["logits"], arch.moe.top_k, call["cap"])
+        if not torch.equal(call["expert_idx"], order) or not torch.equal(call["keep"], keep):
+            bad = int((call["expert_idx"] != order).any(-1).sum())
+            raise AssertionError(f"{what} route call {i}: {bad} tokens routed otherwise than the float64 "
+                                 f"recomputation, keep equal: {torch.equal(call['keep'], keep)}")
+        dropped += int((~keep).sum())
+    return dropped
+
+
+def _tie_gap(logits: torch.Tensor, choices: torch.Tensor) -> float:
+    """How far apart two of ``logits`` (E,) are that a stable top-k must swap
+    to give ``choices`` (k,) in their order: the largest rise along the
+    choices, and the largest logit left out above the last choice.  A
+    routing flipped by a perturbation of at most d per logit has a gap of
+    at most 2 d."""
+    chosen = logits[choices]
+    gap = float((chosen[1:] - chosen[:-1]).clamp(min=0).max()) if len(choices) > 1 else 0.0
+    rest = torch.ones_like(logits, dtype=torch.bool)
+    rest[choices] = False
+    if bool(rest.any()):
+        gap = max(gap, float((logits[rest].max() - chosen[-1]).clamp(min=0)))
+    return gap
+
+
+def _family_leg(model, arch, toks, steps: int, atol: float, allow_flips: bool, what: str) -> dict:
+    """Prefill of all but ``steps`` tokens and teacher-forced decode steps
+    against forward over all of them, for every family (attn_serve's legs
+    too); every MoE routing of both equal to its float64 recomputation.  The routing of each position is compared with
+    forward's too.  Where ``allow_flips`` (bf16), a sequence is held to
+    ``atol`` up to its first position whose routing differs from forward's
+    in some layer, and that flip must be a near-tie: the experts it swaps lie
+    no further apart in forward's router logits than twice the largest
+    change of that token's router logits between the two runs.  The later
+    positions are counted, not held: the flip reaches them through
+    attention."""
+    b, total = toks.shape
+    s = total - steps
+    with _routing_log(logits=True) as fwd_log, torch.inference_mode():
+        full, _, _ = transformer.forward(model, {"tokens": toks}, arch)
+    with _routing_log(logits=True) as srv_log:
+        pre, cache = engine.prefill(model, {"tokens": toks[:, :s]}, arch, total)
+        outs = [pre.float()]
+        for t in range(steps):
+            step, cache = engine.decode_step(model, cache, toks[:, s + t], s + t, arch)
+            outs.append(step[:, None].float())
+    err = (torch.cat(outs, dim=1) - full.float()).abs().amax(-1)  # (B, total)
+    held = torch.ones_like(err, dtype=torch.bool)
+    row = {}
+    if arch.moe is not None:
+        k, e, layers = arch.moe.top_k, arch.moe.num_experts, arch.n_layers
+
+        def per_position(log, key, width):  # (layers, B, total, width): prefill, then the decode steps
+            return torch.stack([torch.cat([c[key].reshape(b, -1, width) for c in log[layer::layers]], dim=1)
+                                for layer in range(layers)])
+
+        fwd, srv = per_position(fwd_log, "expert_idx", k), per_position(srv_log, "expert_idx", k)
+        fwd_logits, srv_logits = per_position(fwd_log, "logits", e), per_position(srv_log, "logits", e)
+        differs = (fwd != srv).any(-1)  # (layers, B, total)
+        held = torch.cumprod((~differs.any(0)).int(), dim=1).bool()
+        row["flips"] = []
+        for seq in range(b):
+            flipped = torch.nonzero(differs[:, seq].any(0))
+            if flipped.numel() == 0:
+                continue
+            pos = int(flipped[0])
+            layer = int(torch.nonzero(differs[:, seq, pos])[0])
+            logits = fwd_logits[layer, seq, pos]
+            flip = {"sequence": seq, "position": pos, "layer": layer,
+                    "gap": _tie_gap(logits, srv[layer, seq, pos]),
+                    "logit_change": float((srv_logits[layer, seq, pos] - logits).abs().max())}
+            row["flips"].append(flip)
+            if not allow_flips or flip["gap"] > 2 * flip["logit_change"]:
+                raise AssertionError(f"{what}: routing differs from forward's, not at a near-tie: {flip}")
+        row["positions_after_a_flip"] = int((~held).sum())
+        row["dropped_choices"] = _check_routing_float64(fwd_log + srv_log, arch, what)
+    err = torch.where(held, err, 0.0)
+    row.update(prefill=float(err[:, :s].max()), decode=float(err[:, s:].max()))
+    if not max(row["prefill"], row["decode"]) <= atol or not bool(torch.isfinite(full).all()):
+        raise AssertionError(f"{what}: prefill + decode differ from forward by {row} (atol {atol})")
+    return row
+
+
+def _scan_against_float64(model, arch, toks) -> dict:
+    """The first rec layer's recurrence over the prompt at full width: the
+    port's prefix scan against a float64 sequential scan of the same a, b."""
+    block = next(block for block in model.layers if block.kind == "rec")
+    mixer = block.mixer
+    with torch.inference_mode():
+        x = model_common.rms_norm(transformer.embed_tokens(model, {"tokens": toks}, arch), block.norm1)
+        xb = x @ mixer["w_x"].to(x.dtype)
+        a, b = rglru._gates(mixer, rglru._causal_conv(mixer, xb))
+        h = rglru.rglru_scan(a, b)
+        a64, b64 = a.double(), b.double()
+        carry = torch.zeros_like(b64[:, 0])
+        want = torch.empty_like(b64)
+        for t in range(b64.shape[1]):
+            carry = a64[:, t] * carry + b64[:, t]
+            want[:, t] = carry
+    scale = max(1.0, float(want.abs().max()))
+    err = float((h.double() - want).abs().max())
+    row = {"tokens": toks.shape[1], "d": arch.d_model, "max_abs_err": err, "max_abs_h": scale,
+           "a_min": float(a.min()), "a_max": float(a.max())}
+    if not err <= SCAN_RTOL * scale:
+        raise AssertionError(f"RG-LRU scan against a float64 sequential scan: {row} (tolerance {SCAN_RTOL} x max|h|)")
+    return row
+
+
+def _collapse_check(prompts: torch.Tensor, expert_idx: torch.Tensor, device) -> dict:
+    """The MoE collapse telemetry of the serve launcher's board config: the
+    layer-0 assignment stream's estimate within 4 sigma of its exact
+    distinct pairs, and a collapsed stream (every choice -> expert 0) below
+    the healthy one / 1.5."""
+    board = StreamSketch(HLLConfig(p=12, hash_bits=64), device=device)
+    healthy = moe_lib.assignment_stream(prompts, expert_idx)
+    collapsed = moe_lib.assignment_stream(prompts, torch.zeros_like(expert_idx))
+    board.observe("healthy", healthy)
+    board.observe("collapsed", collapsed)
+    report = board.report()
+    exact = int(torch.unique(healthy).numel())
+    sigma = 1.04 / np.sqrt(board.cfg.m)
+    row = {"pairs": int(healthy.numel()), "exact_distinct": exact, "estimate": report["healthy"]["estimate"],
+           "collapsed_exact": int(torch.unique(collapsed).numel()), "collapsed_estimate": report["collapsed"]["estimate"]}
+    if abs(row["estimate"] - exact) > 4 * sigma * exact:
+        raise AssertionError(f"assignment stream: estimate {row['estimate']} vs {exact} distinct, beyond 4 sigma")
+    if not row["collapsed_estimate"] < row["estimate"] / 1.5:
+        raise AssertionError(f"a collapsed router reads {row['collapsed_estimate']}, not below {row['estimate']} / 1.5")
+    return row
+
+
+def phase_family_serve(device, archs=FAMILY_LAUNCH_ARCHS, launch_args=None, kernels=ATTN_LAUNCH_KERNELS,
+                       check=None, check_prompt: int = FAMILY_CHECK_PROMPT, check_steps: int = FAMILY_CHECK_STEPS,
+                       route_prompt: int = SERVE_PROMPT, batch_archs=FAMILY_BATCH_ARCHS,
+                       batch_prompts=ATTN_BATCH_PROMPTS, batch_slots: int = ATTN_BATCH_SLOTS,
+                       batch_new: int = ATTN_BATCH_NEW, out_dir: Path = BUILD, reduce=False) -> dict:
+    """The MoE and RG-LRU hybrid families on the card: olmoe-1b-7b and
+    recurrentgemma-9b unreduced through the serve launcher, with the launch
+    phase's traffic; at full width over 2-3 layers, prefill + decode against
+    forward in float32 and bf16 for olmoe-1b-7b, mixtral-8x7b and
+    recurrentgemma-9b, the float32 routing against its float64
+    recomputation (over ``route_prompt``-token groups too, where capacity
+    drops), the RG-LRU scan against a float64 sequential scan; a
+    ContinuousBatcher of mixed prompts at full width for one MoE arch and the
+    hybrid; the router-collapse telemetry of the launcher's olmoe prefill."""
+    from repro_torch.launch import serve as launcher
+
+    on_card = torch.device(device).type == "cuda"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    full_arch = (lambda a: get_arch(a).reduced()) if reduce else get_arch
+    out = {"launcher": {}, "legs": {}, "batcher": {}}
+    launch_args = launch_args or ("--full-config", "--requests", str(SERVE_REQUESTS), "--prompt-len",
+                                  str(SERVE_PROMPT), "--gen-len", str(SERVE_GEN), "--report-every", "4")
+    for arch_id in archs:
+        argv = ["--arch", arch_id, *launch_args]
+        with _routing_log() as log:
+            run = _launcher_run(device, argv, out_dir / f"family_{arch_id}_metrics.json")
+        for line in run.pop("printed"):
+            print(f"[family_serve] {arch_id} | {line}")
+        run.pop("telemetry")
+        launches = run.pop("launches")
+        if on_card:
+            missing = [name for name in kernels if launches[name] == 0]
+            if missing:
+                raise AssertionError(f"kernels never launched on the {arch_id} launcher: {missing}")
+        run["launches"] = {name: launches[name] for name in kernels}
+        prefill_calls = [c for c in log if c["tg"] > 1]
+        if prefill_calls:
+            arch = full_arch(arch_id)
+            run["prefill_route_calls"] = len(prefill_calls)
+            run["capacity"] = prefill_calls[0]["cap"]
+            run["dropped_choices_per_layer"] = [int((~c["keep"]).sum()) for c in prefill_calls]
+            run["dropped_choices"] = sum(run["dropped_choices_per_layer"])
+            prompts = launcher._prompts(launcher._parser().parse_args(argv), arch, device)
+            run["collapse"] = _collapse_check(prompts, prefill_calls[0]["expert_idx"].reshape(
+                *prompts.shape, arch.moe.top_k), device)
+        print(f"[family_serve] {arch_id} launcher: {json.dumps(run)}")
+        out["launcher"][arch_id] = run
+
+    check = check or FAMILY_CHECK_LAYERS
+    for arch_id, layers in check.items():
+        small = dataclasses.replace(full_arch(arch_id), n_layers=layers)
+        model = transformer.init_params(small, torch.Generator(device=device).manual_seed(SEED), device)
+        gen = torch.Generator(device=device).manual_seed(SEED + 23)
+        toks = torch.randint(0, small.vocab_size, (2, check_prompt + check_steps), generator=gen, device=device,
+                             dtype=torch.int32)
+        legs = {}
+        for leg, dtype, atol, allow_flips in (("f32", torch.float32, ATTN_F32_ATOL, False),
+                                              ("bf16", torch.bfloat16, ATTN_BF16_ATOL, True)):
+            with _activations(dtype):
+                legs[leg] = _family_leg(model, small, toks, check_steps, atol, allow_flips, f"{arch_id} {leg}")
+        long_toks = torch.randint(0, small.vocab_size, (2, route_prompt), generator=gen, device=device,
+                                  dtype=torch.int32)
+        if small.moe is not None:
+            # groups of route_prompt tokens: capacity drops, checked in float64
+            with _activations(torch.float32), _routing_log(logits=True) as log, torch.inference_mode():
+                transformer.forward(model, {"tokens": long_toks}, small)
+            legs["routing_float64"] = {"tokens": route_prompt, "capacity": log[0]["cap"],
+                                       "dropped_choices": _check_routing_float64(log, small, f"{arch_id} routing")}
+        if any(kind == "rec" for _, _, _, kind in transformer.sublayers(small)):
+            legs["scan_float64"] = _scan_against_float64(model, small, long_toks)
+        del model
+        print(f"[family_serve] {arch_id} x {layers} layers: {json.dumps(legs)}")
+        out["legs"][arch_id] = legs
+
+    for arch_id in batch_archs:
+        arch = full_arch(arch_id)
+        with _activations(torch.float32):
+            model = transformer.init_params(arch, torch.Generator(device=device).manual_seed(SEED), device)
+            rng = np.random.default_rng(SEED + 24)
+            prompts = [rng.integers(0, arch.vocab_size, n, dtype=np.int32) for n in batch_prompts]
+            out["batcher"][arch_id] = _batcher_against_solo(model, arch, prompts, batch_slots, batch_new, arch_id)
+            del model
+        print(f"[family_serve] {arch_id} batcher: {json.dumps(out['batcher'][arch_id])}")
     return out
 
 
@@ -2434,7 +2722,8 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     ``fold_window()`` of the 3 GiB (64, 1024, 4, 1024) count-min ring, one
     full-width RWKV6-3B ``engine.prefill`` of 8 x 1024 tokens, or one
     ``engine.decode_step`` of the 8 requests after it, the same two for
-    TinyLlama-1.1B, or the bank tick over PLACEMENT_SHARDS row blocks;
+    TinyLlama-1.1B, olmoe-1b-7b (moe_*) and recurrentgemma-9b (hybrid_*),
+    or the bank tick over PLACEMENT_SHARDS row blocks;
     ``only`` (step names) profiles those alone.
     Prints the wall time per step (without the profiler), the
     card's busy time per step (the sum of its kernel and copy times, from
@@ -2444,7 +2733,7 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     and the idle share, and the top device entries by self time.  Informational: an empty device
     trace is reported, not raised.
     """
-    from torch.profiler import ProfilerActivity, profile, schedule
+    import gc
 
     rng = np.random.default_rng(SEED + 3)
     cfg = HLLConfig(p=16, hash_bits=64)
@@ -2503,69 +2792,81 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
         # the W - 1 pairwise label merges
         "cm_window_read": lambda: cm_ring.fold_window(plan=plan),
     }
-    # the serve path at full width
-    if only is None or {"serve_prefill", "serve_decode"} & set(only):
-        arch = get_arch(SERVE_ARCH)
-        sgen = torch.Generator(device=device).manual_seed(SEED + 11)
-        model = transformer.init_params(arch, sgen, device)
-        batch = {"tokens": torch.randint(0, arch.vocab_size, (requests, prompt_len), generator=sgen,
+    # the serve paths at full width: each model is drawn when its steps are
+    # profiled and freed after them, so that one model is on the card at a time
+    model_steps = {("serve_prefill", "serve_decode"): (SERVE_ARCH, SEED + 11),
+                   ("attn_prefill", "attn_decode"): (ATTN_ARCH, SEED + 12),
+                   ("moe_prefill", "moe_decode"): ("olmoe-1b-7b", SEED + 13),
+                   ("hybrid_prefill", "hybrid_decode"): ("recurrentgemma-9b", SEED + 14)}
+
+    def serve_steps(arch_id: str, seed: int) -> tuple:
+        arch = get_arch(arch_id)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = transformer.init_params(arch, gen, device)
+        batch = {"tokens": torch.randint(0, arch.vocab_size, (requests, prompt_len), generator=gen,
                                          device=device, dtype=torch.int32)}
         _, cache = engine.prefill(model, batch, arch, prompt_len + 2)
         last = batch["tokens"][:, -1]
-        steps_fn["serve_prefill"] = lambda: engine.prefill(model, batch, arch, prompt_len + 2)
-        steps_fn["serve_decode"] = lambda: engine.decode_step(model, cache, last, prompt_len, arch)
-    # attention serving at full width (TinyLlama-1.1B, the launcher's default)
-    if only is None or {"attn_prefill", "attn_decode"} & set(only):
-        aarch = get_arch(ATTN_ARCH)
-        agen = torch.Generator(device=device).manual_seed(SEED + 12)
-        amodel = transformer.init_params(aarch, agen, device)
-        abatch = {"tokens": torch.randint(0, aarch.vocab_size, (requests, prompt_len), generator=agen,
-                                          device=device, dtype=torch.int32)}
-        _, acache = engine.prefill(amodel, abatch, aarch, prompt_len + 2)
-        alast = abatch["tokens"][:, -1]
-        steps_fn["attn_prefill"] = lambda: engine.prefill(amodel, abatch, aarch, prompt_len + 2)
-        steps_fn["attn_decode"] = lambda: engine.decode_step(amodel, acache, alast, prompt_len, aarch)
-    if only is not None:
-        steps_fn = {name: steps_fn[name] for name in only}
+        return (lambda: engine.prefill(model, batch, arch, prompt_len + 2),
+                lambda: engine.decode_step(model, cache, last, prompt_len, arch))
+
     result = {}
     for name, step in steps_fn.items():
-        # wall time without the profiler, whose own host cost would add idle
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        for attempt in range(1, PROFILE_ATTEMPTS + 1):
-            # one warm-up step, then `steps` recorded; the card finishes the
-            # warm-up step before the recording starts (the profiler records
-            # by the card's clock, so a device-bound step's queued kernels
-            # would count) and the recorded ones before it stops
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
-                for i in range(steps + 1):
-                    step()
-                    if i in (0, steps):
-                        torch.cuda.synchronize()
-                    prof.step()
-            rows_ = _device_entries(prof.key_averages())
-            # every step launches the same kernels, so a count that is not a
-            # whole number of steps means the profiler lost records (seen
-            # now and then on the card, in the full phase only): record again
-            whole = all(e.count % steps == 0 for e in rows_)
-            if whole:
-                break
-        busy_ms = sum(e.self_device_time_total for e in rows_) / 1e3 / steps
-        result[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                        "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-                        "recordings": attempt, "whole_steps": whole}
-        intra = [e for e in rows_ if "rwkv_intra" in e.key]
-        if intra:
-            result[name]["rwkv_intra_ms"] = sum(e.self_device_time_total for e in intra) / 1e3 / steps
-        print(f"[profile] {name} step: {json.dumps(result[name])}")
-        for e in sorted(rows_, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"[profile] {name}:   {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
-                  f"x{e.count / steps:g}  {e.key[:90]}")
+        if wanted(name):
+            result[name] = _profile_step(name, step, steps)
+    for names, (arch_id, seed) in model_steps.items():
+        if any(wanted(name) for name in names):
+            for name, step in zip(names, serve_steps(arch_id, seed)):
+                if wanted(name):
+                    result[name] = _profile_step(name, step, steps)
+            del step  # the last reference to the model
+            gc.collect()
+            torch.cuda.empty_cache()
+    return result
+
+
+def _profile_step(name: str, step, steps: int) -> dict:
+    """Wall (without the profiler) and card busy time per call of ``step``,
+    idle share and top device entries (see phase_profile)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    # wall time without the profiler, whose own host cost would add idle
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        # one warm-up step, then `steps` recorded; the card finishes the
+        # warm-up step before the recording starts (the profiler records
+        # by the card's clock, so a device-bound step's queued kernels
+        # would count) and the recorded ones before it stops
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+            for i in range(steps + 1):
+                step()
+                if i in (0, steps):
+                    torch.cuda.synchronize()
+                prof.step()
+        rows_ = _device_entries(prof.key_averages())
+        # every step launches the same kernels, so a count that is not a
+        # whole number of steps means the profiler lost records (seen
+        # now and then on the card, in the full phase only): record again
+        whole = all(e.count % steps == 0 for e in rows_)
+        if whole:
+            break
+    busy_ms = sum(e.self_device_time_total for e in rows_) / 1e3 / steps
+    result = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+              "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+              "recordings": attempt, "whole_steps": whole}
+    intra = [e for e in rows_ if "rwkv_intra" in e.key]
+    if intra:
+        result["rwkv_intra_ms"] = sum(e.self_device_time_total for e in intra) / 1e3 / steps
+    print(f"[profile] {name} step: {json.dumps(result)}")
+    for e in sorted(rows_, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile] {name}:   {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
+              f"x{e.count / steps:g}  {e.key[:90]}")
     return result
 
 
@@ -2666,6 +2967,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the placement path: {missing}")
     attn = _timed(phase_attn_serve, device)  # zeroes and reads the counts around each launcher run
+    family = _timed(phase_family_serve, device)  # likewise
 
     timing = _timed(phase_timing, device)
     _timed(phase_profile, device)
@@ -2695,6 +2997,12 @@ def main() -> int:
               f"{[r['prefill_tokens_per_s'] for r in runs]} tokens/s, decode "
               f"{[r['decode_tokens_per_s'] for r in runs]} tokens/s, peak device memory "
               f"{[r['max_memory_allocated'] for r in runs]} bytes")
+    for arch_id, run in family["launcher"].items():
+        print(f"[timing] launcher {arch_id} full width: prefill {run['prefill_tokens_per_s']:.6g} tokens/s, "
+              f"decode {run['decode_tokens_per_s']:.6g} tokens/s, peak device memory {run['max_memory_allocated']} "
+              f"bytes" + (f"; prefill dropped {run['dropped_choices']} (token, choice) pairs over "
+                          f"{run['prefill_route_calls']} layers at capacity {run['capacity']}"
+                          if "dropped_choices" in run else ""))
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -18,13 +18,16 @@ the same formats.
 A model's weights cross as the reference's parameter tree: nested dicts
 of float32 numpy arrays (``embed``, ``final_norm``, ``lm_head`` and per
 stage ``stage<i>/sub<j>/{norm1, norm2, mixer/..., channel/...}`` stacked
-over the stage's layers), bit for bit: the RWKV6 mixers, and the
-attention mixers (``wq``/``wk``/``wv``/``wo`` in the reference's GQA head
-grouping, ``q_norm``/``k_norm`` with qk-norm; a tied head is the
-embedding) with their SwiGLU channel mixes.  The decode cache crosses in
-the reference's layout too (``cache_from_reference``): float32 entries as
-float32, bf16 entries (the RWKV token shifts, the K/V rings, the int8
-cache's scales) as float32 (exact) or as their uint16 bits, since numpy
+over the stage's layers), bit for bit: the RWKV6 mixers, the attention
+mixers (``wq``/``wk``/``wv``/``wo`` in the reference's GQA head grouping,
+``q_norm``/``k_norm`` with qk-norm; a tied head is the embedding), the
+RG-LRU mixers (``w_x``, ``w_gate``, ``conv_w``, ``conv_b``, ``w_a``,
+``w_i``, ``lam``, ``w_out``), and the SwiGLU or MoE (``router``, ``gate``,
+``up``, ``down``) channel mixes.  The decode cache crosses in the
+reference's layout too (``cache_from_reference``): float32 entries (the
+RWKV and RG-LRU states) as float32, bf16 entries (the RWKV token shifts,
+the RG-LRU conv windows, the K/V rings, the int8 cache's scales) as
+float32 (exact) or as their uint16 bits, since numpy
 has no bfloat16 that torch reads, the int8 rings as int8 and the
 ``kv_pos_<W>`` slot maps as int32.  Converting JAX arrays to numpy is the
 caller's part.
@@ -220,7 +223,7 @@ def cm_window_from_reference_state(
 
 
 # ----------------------------------------------------------------------------
-# model weights and the RWKV decode cache
+# model weights and the decode cache
 # ----------------------------------------------------------------------------
 
 
@@ -257,7 +260,7 @@ def model_from_reference(params: Dict[str, object], arch: ArchConfig, device=Non
             kind,
             tensor(leaf(sub, sub_shapes, "norm1", where)[rep]),
             tensor(leaf(sub, sub_shapes, "norm2", where)[rep]),
-            *transformer.make_parts(kind, parts["mixer"], parts["channel"]),
+            *transformer.make_parts(kind, arch, parts["mixer"], parts["channel"]),
         ))
     lm_head = None if arch.tie_embeddings else tensor(leaf(params, shapes, "lm_head", ""))
     return transformer.Model(tensor(leaf(params, shapes, "embed", "")),
@@ -304,9 +307,9 @@ def _bf16_from_reference(value, where: str) -> torch.Tensor:
 
 def cache_from_reference(cache: Dict[str, object], arch: ArchConfig, device=None) -> Dict[str, object]:
     """The port's decode cache from the reference's, any family the port
-    runs: float32 entries (``s``) as float32, bf16 entries (``x_prev``,
-    ``cm_x_prev``, the K/V rings, the int8 cache's scales) as float32
-    values or uint16 bits, the int8 rings as int8, and the ``kv_pos_<W>``
+    runs: float32 entries (``s``, ``h``) as float32, bf16 entries
+    (``x_prev``, ``cm_x_prev``, ``conv``, the K/V rings, the int8 cache's
+    scales) as float32 values or uint16 bits, the int8 rings as int8, and the ``kv_pos_<W>``
     slot maps, (W,) or (B, W), as int32."""
     device = hll.resolve_device(device)
     # the layout to expect: the port's own empty cache, on no device

@@ -6,10 +6,10 @@
 
 Port of ``repro/launch/serve.py``: the same flags, defaults, printed lines,
 spans, gauges and snapshot file.  The model runs on ``--device`` (the card
-by default; ``cpu`` runs every kernel's plain PyTorch version).  The port
-serves the attention families (dense, vlm, audio; the default ``--arch
-tinyllama-1.1b``) and RWKV6; MoE and the RG-LRU hybrid raise
-``NotImplementedError`` until the next family slice (ROADMAP A.12.1).
+by default; ``cpu`` runs every kernel's plain PyTorch version).  Every
+``--arch`` serves: the attention families (dense, vlm, audio; the default
+``--arch tinyllama-1.1b``), MoE (mixtral-8x7b, olmoe-1b-7b), the RG-LRU
+hybrid (recurrentgemma-9b) and RWKV6.
 
 The sketch-telemetry ingest runs the production serve path (DESIGN.md
 §16): every request SUBMITS its token stream to a coalescing queue and the
@@ -155,7 +155,6 @@ def main(argv=None) -> None:
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
-    # an unported family (MoE, the RG-LRU hybrid) raises here
     model = _model(args, arch, device)
     # the plan's estimator rides to board.report(), which finalizes all
     # streams with one batched estimate_many dispatch; --topk adds the

@@ -2,9 +2,8 @@
 
 Port of ``repro/models/registry.py``.  Counts come from the modules' own
 shape tables (``transformer.param_shapes``), the same tables the
-initialisers draw from, so nothing is allocated to count.  The families
-that are not ported yet, ``moe`` and ``hybrid`` (RG-LRU), raise
-``NotImplementedError`` (ROADMAP A.12.1).
+initialisers draw from, so nothing is allocated to count; every family
+counts as the reference does.
 """
 
 from __future__ import annotations

@@ -1,15 +1,18 @@
 """Decoder backbone assembly: stages, parameters and the full-sequence forward.
 
-Port of ``repro/models/transformer.py`` for the attention families
-(``attn`` sublayers: GQA attention with RoPE / M-RoPE, sliding windows and
-qk-norm, then a SwiGLU channel mix: dense, vlm and audio) and the RWKV6
-family (``rwkv`` sublayers: RWKV6 time mix + squared-ReLU channel mix).
+Port of ``repro/models/transformer.py`` for every family:
+
+  dense / moe / audio / vlm : attention mixer (+SWA / M-RoPE / qk-norm),
+                              a SwiGLU or MoE channel mix
+  ssm (rwkv6)               : RWKV6 time-mix + squared-ReLU channel mix
+  hybrid (recurrentgemma)   : (rec, rec, attn) pattern, RG-LRU + local attn
+
 Layers are grouped into *stages* -- (pattern, repeats) pairs -- as in the
-reference; the reference scans each stage over stacked parameters, the
-port keeps one ``Block`` per sublayer in a flat layer list, in stage
-order, and runs them in a Python loop.  The ``rec`` (RG-LRU) sublayer and
-MoE channel mixers raise ``NotImplementedError``: they come with the next
-family slice (ROADMAP A.12.1).  ``loss_fn`` waits for the training slice.
+reference; hybrids repeat whole patterns and leftover layers form a
+trailing mini-stage.  The reference scans each stage over stacked
+parameters, the port keeps one ``Block`` per sublayer in a flat layer
+list, in stage order, and runs them in a Python loop.  ``loss_fn`` waits
+for the training slice (ROADMAP A.12.3).
 
 Modality frontends (audio frames / vision patches) are stubs, as in the
 reference: ``frontend_embeds`` enter as precomputed (B, stub_len, d)
@@ -24,14 +27,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, common, rwkv6
+from repro_torch.models import attention, common, moe, rglru, rwkv6
 from repro_torch.sketch.hll import resolve_device
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A.12.1); the port runs the attention and rwkv families"
-    )
 
 
 # ----------------------------------------------------------------------------
@@ -69,26 +66,36 @@ def _sublayer_window(kind: str, arch: ArchConfig) -> Optional[int]:
     return arch.sliding_window
 
 
-def _check_supported(arch: ArchConfig) -> None:
+_MIXERS = {"attn": (attention.param_shapes, attention.init_params, attention.Attention),
+           "rec": (rglru.param_shapes, rglru.init_params, rglru.RGLRU),
+           "rwkv": (rwkv6.param_shapes, rwkv6.init_params, rwkv6.TimeMix)}
+
+
+def _parts(kind: str, arch: ArchConfig):
+    """(param_shapes, init_params, module) of a ``kind`` sublayer's mixer and
+    of its channel mix: MoE for a MoE arch, else RWKV6's or a SwiGLU."""
+    if kind not in _MIXERS:
+        raise ValueError(f"unknown sublayer kind {kind!r}")
     if arch.moe is not None:
-        raise _unported("the MoE channel mixer")
-    for _, _, _, kind in sublayers(arch):
-        if kind not in ("attn", "rwkv"):
-            raise _unported(f"the {kind!r} sublayer")
+        channel = (moe.param_shapes, moe.init_params, moe.MoE)
+    elif kind == "rwkv":
+        channel = (rwkv6.channel_param_shapes, rwkv6.init_channel_params, rwkv6.ChannelMix)
+    else:
+        channel = (lambda a: common.swiglu_shapes(a.d_model, a.d_ff),
+                   lambda a, gen, dev: common.swiglu_init(gen, a.d_model, a.d_ff, dev), common.SwiGLU)
+    return _MIXERS[kind], channel
 
 
 def _part_shapes(kind: str, arch: ArchConfig) -> Dict[str, Dict[str, tuple]]:
     """The mixer's and the channel mix's parameter shapes of a ``kind`` sublayer."""
-    if kind == "rwkv":
-        return {"mixer": rwkv6.param_shapes(arch), "channel": rwkv6.channel_param_shapes(arch)}
-    return {"mixer": attention.param_shapes(arch), "channel": common.swiglu_shapes(arch.d_model, arch.d_ff)}
+    mixer, channel = _parts(kind, arch)
+    return {"mixer": mixer[0](arch), "channel": channel[0](arch)}
 
 
-def make_parts(kind: str, mixer: Dict[str, torch.Tensor], channel: Dict[str, torch.Tensor]):
+def make_parts(kind: str, arch: ArchConfig, mixer: Dict[str, torch.Tensor], channel: Dict[str, torch.Tensor]):
     """The mixer and channel-mix modules of a ``kind`` sublayer from their tensors."""
-    if kind == "rwkv":
-        return rwkv6.TimeMix(mixer), rwkv6.ChannelMix(channel)
-    return attention.Attention(mixer), common.SwiGLU(channel)
+    mixer_part, channel_part = _parts(kind, arch)
+    return mixer_part[2](mixer), channel_part[2](channel)
 
 
 # ----------------------------------------------------------------------------
@@ -123,7 +130,6 @@ class Model(nn.Module):
 
 def param_shapes(arch: ArchConfig) -> Dict[str, object]:
     """The reference's parameter tree as shapes, per stage stacked over repeats."""
-    _check_supported(arch)
     d = arch.d_model
     shapes: Dict[str, object] = {"embed": (arch.vocab_size, d), "final_norm": (d,)}
     if not arch.tie_embeddings:
@@ -144,7 +150,6 @@ def param_shapes(arch: ArchConfig) -> Dict[str, object]:
 
 def init_params(arch: ArchConfig, generator: torch.Generator, device=None) -> Model:
     """The full model, drawn from ``generator`` on ``device`` (the card by default)."""
-    _check_supported(arch)
     device = resolve_device(device)
     d = arch.d_model
     embed = common.embed_init(generator, arch.vocab_size, d, device)
@@ -152,13 +157,10 @@ def init_params(arch: ArchConfig, generator: torch.Generator, device=None) -> Mo
     layers = []
     for _, _, _, kind in sublayers(arch):
         ones = torch.ones((d,), dtype=common.PARAM_DTYPE, device=device)
-        if kind == "rwkv":
-            mixer = rwkv6.init_params(arch, generator, device)
-            channel = rwkv6.init_channel_params(arch, generator, device)
-        else:
-            mixer = attention.init_params(arch, generator, device)
-            channel = common.swiglu_init(generator, d, arch.d_ff, device)
-        layers.append(Block(kind, ones, ones.clone(), *make_parts(kind, mixer, channel)))
+        mixer_part, channel_part = _parts(kind, arch)
+        mixer = mixer_part[1](arch, generator, device)
+        channel = channel_part[1](arch, generator, device)
+        layers.append(Block(kind, ones, ones.clone(), *make_parts(kind, arch, mixer, channel)))
     return Model(embed, torch.ones((d,), dtype=common.PARAM_DTYPE, device=device), layers, lm_head)
 
 
@@ -170,8 +172,6 @@ def init_params(arch: ArchConfig, generator: torch.Generator, device=None) -> Mo
 def _apply_sublayer(kind: str, sub: Block, x: torch.Tensor, positions, arch: ArchConfig,
                     collect_state: bool):
     """Pre-norm residual sublayer. Returns (x, aux_loss, state_or_None)."""
-    if kind not in ("attn", "rwkv"):
-        raise _unported(f"the {kind!r} sublayer")
     h = common.rms_norm(x, sub.norm1, arch.norm_eps)
     state = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -182,7 +182,13 @@ def _apply_sublayer(kind: str, sub: Block, x: torch.Tensor, positions, arch: Arc
         mixed = attention.attend(sub.mixer, q, k, v, positions, arch, window=_sublayer_window(kind, arch))
         if collect_state:
             state = {"k": k, "v": v}
-    else:
+    elif kind == "rec":
+        if collect_state:
+            mixed, rec_state = rglru.block(sub.mixer, h, arch, return_state=True)
+            state = {"conv": rec_state.conv, "h": rec_state.h}
+        else:
+            mixed = rglru.block(sub.mixer, h, arch)
+    else:  # rwkv
         if arch.rwkv_chunk_size > 0:
             mixed, rwkv_state = rwkv6.time_mix_chunked(sub.mixer, h, arch, chunk=arch.rwkv_chunk_size)
         else:
@@ -192,7 +198,9 @@ def _apply_sublayer(kind: str, sub: Block, x: torch.Tensor, positions, arch: Arc
     x = x + mixed
 
     h2 = common.rms_norm(x, sub.norm2, arch.norm_eps)
-    if kind == "rwkv":
+    if arch.moe is not None:
+        ch, aux, _ = moe.moe_mixer(sub.channel, h2, arch)
+    elif kind == "rwkv":
         ch = rwkv6.channel_mix(sub.channel, h2)
         if collect_state:
             state = dict(state, cm_x_prev=h2[:, -1])

@@ -1,6 +1,6 @@
 """Serving engine: prefill + single-token decode.
 
-Port of ``repro/serve/engine.py`` for the attention and RWKV6 families.
+Port of ``repro/serve/engine.py`` for every family.
 The cache keeps the reference's layout: ``{"stages": [per stage
 {"sub<j>": entries}], "kv_pos_<W>": ...}``, each entry stacked over the
 stage's layers.  An ``attn`` sublayer keeps
@@ -13,11 +13,20 @@ stage's layers.  An ``attn`` sublayer keeps
   k_scale, v_scale (L, B, W, Hkv, 1) bf16 the int8 cache's scales;
 
 beside one slot -> position map ``kv_pos_<W>`` per ring width, (W,) int32,
--1 for an empty slot, shared by the layers.  An ``rwkv`` sublayer keeps
+-1 for an empty slot, shared by the layers.  A ``rec`` (RG-LRU) sublayer
+keeps
+
+  conv       (L, B, w - 1, d) bf16    the conv's trailing inputs;
+  h          (L, B, d) float32        the recurrent state;
+
+and an ``rwkv`` sublayer
 
   s          (L, B, H, N, N) float32  the per-head state matrix;
   x_prev     (L, B, d) bf16           the time mix's token-shift input;
   cm_x_prev  (L, B, d) bf16           the channel mix's token-shift input.
+
+A MoE channel mix keeps nothing: decode routes each token as a group of
+one (drop-free, capacity top_k), as the reference does.
 
 ``decode_step`` takes one position for the whole batch, as the
 reference's, or one per row with (B, W) position maps: the continuous
@@ -26,10 +35,8 @@ vmaps the single-sequence step instead.  Decode attention materializes
 (B, H, W) scores -- tiny -- against the ring.
 
 The functions are functional like the reference's: a decode step returns
-a new cache and leaves the one it was given as it was.  The recurrent
-(RG-LRU) sublayers and MoE come with the next family slice (ROADMAP
-A.12.1).  Every entry point runs under ``torch.inference_mode()`` on the
-model's device.
+a new cache and leaves the one it was given as it was.  Every entry point
+runs under ``torch.inference_mode()`` on the model's device.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, common, rwkv6, transformer
+from repro_torch.models import attention, common, moe, rglru, rwkv6, transformer
 from repro_torch.serve.kvquant import dequantize_kv, quantize_kv
 from repro_torch.sketch.hll import resolve_device
 
@@ -59,7 +66,6 @@ def cache_width(arch: ArchConfig, kind: str, kv_len: int) -> int:
 
 def init_cache(arch: ArchConfig, batch: int, kv_len: int, device=None) -> Dict[str, Any]:
     """Zeroed decode cache for a maximum context of ``kv_len`` tokens."""
-    transformer._check_supported(arch)
     device = resolve_device(device)
     hd, hkv = arch.head_dim, arch.n_kv_heads
     h, n, d = arch.n_heads, arch.rwkv_head_dim, arch.d_model
@@ -84,6 +90,11 @@ def init_cache(arch: ArchConfig, batch: int, kv_len: int, device=None) -> Dict[s
                         v_scale=zeros(repeats, batch, w, hkv, 1, dtype=torch.bfloat16),
                     )
                 pos_maps[f"kv_pos_{w}"] = torch.full((w,), -1, dtype=torch.int32, device=device)
+            elif kind == "rec":
+                stage[f"sub{j}"] = {
+                    "conv": zeros(repeats, batch, arch.conv_width - 1, d, dtype=common.ACT_DTYPE),
+                    "h": zeros(repeats, batch, d, dtype=torch.float32),
+                }
             else:  # rwkv
                 stage[f"sub{j}"] = {
                     "s": zeros(repeats, batch, h, n, n, dtype=torch.float32),
@@ -125,6 +136,9 @@ def prefill(model: transformer.Model, batch, arch: ArchConfig, kv_len: int):
                     tgt["k"][:, :, slots] = k_tail
                     tgt["v"][:, :, slots] = v_tail
                 cache[f"kv_pos_{w}"][slots] = pos
+            elif kind == "rec":
+                tgt["conv"] = st["conv"]
+                tgt["h"] = st["h"]
             else:
                 tgt["s"] = st["s"]
                 tgt["x_prev"] = st["x_prev"].to(common.ACT_DTYPE)
@@ -189,15 +203,18 @@ def _decode_sublayer(kind: str, sub: transformer.Block, lcache: Dict[str, torch.
     if kind == "attn":
         mixed, kv_new = _decode_attn(sub, lcache, kv_pos_map[lcache["k"].shape[1]], h, pos, arch)
         new_cache.update(kv_new)
-    elif kind == "rwkv":
+    elif kind == "rec":
+        mixed, st_new = rglru.block_step(sub.mixer, h, rglru.RGLRUState(conv=lcache["conv"], h=lcache["h"]), arch)
+        new_cache.update(conv=st_new.conv, h=st_new.h)
+    else:  # rwkv
         mixed, s_new = rwkv6.time_mix_step(sub.mixer, h, lcache["x_prev"].to(h.dtype), lcache["s"], arch)
         new_cache.update(s=s_new, x_prev=h.to(common.ACT_DTYPE))
-    else:
-        raise transformer._unported(f"decoding the {kind!r} sublayer")
     x = x + mixed
 
     h2 = common.rms_norm(x, sub.norm2, arch.norm_eps)
-    if kind == "rwkv":
+    if arch.moe is not None:
+        ch = moe.moe_mixer(sub.channel, h2[:, None, :], arch)[0][:, 0]
+    elif kind == "rwkv":
         ch = rwkv6.channel_mix(sub.channel, h2[:, None, :], lcache["cm_x_prev"].to(h2.dtype)[:, None, :])[:, 0]
         new_cache.update(cm_x_prev=h2.to(common.ACT_DTYPE))
     else:

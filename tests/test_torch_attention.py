@@ -332,15 +332,19 @@ def test_kv_cache_and_weights_cross_bit_for_bit(models, name):
         np.testing.assert_allclose(_f32(a), _f32(b), **BF16_TOL)
 
 
-@pytest.mark.parametrize("arch_id", ["tinyllama-1.1b", "smollm-360m", "qwen3-32b", "phi4-mini-3.8b",
-                                     "qwen2-vl-72b", "musicgen-medium"])
+@pytest.mark.parametrize("arch_id", ref_configs.ARCH_IDS)
 def test_param_counts_match_reference(arch_id):
+    # every family, full and reduced, all parameters and the active ones
     arch, ref_arch = configs.get_arch(arch_id), ref_configs.get_arch(arch_id)
-    assert arch.param_count() == ref_registry.param_count(ref_arch)
-    assert registry.model_flops_per_token(arch, "decode") == ref_registry.model_flops_per_token(ref_arch, "decode")
-    assert arch.reduced().param_count() == ref_registry.param_count(ref_arch.reduced())
-    if arch_id == "tinyllama-1.1b":
-        assert arch.param_count() == 1_100_048_384  # 22 layers, d 2048, GQA 32/4, d_ff 5632, vocab 32000
+    for mine, theirs in ((arch, ref_arch), (arch.reduced(), ref_arch.reduced())):
+        for active in (False, True):
+            assert registry.param_count(mine, active) == ref_registry.param_count(theirs, active)
+        assert registry.non_embedding_params(mine) == ref_registry.non_embedding_params(theirs)
+        assert registry.model_flops_per_token(mine, "decode") == ref_registry.model_flops_per_token(theirs, "decode")
+    full = {"tinyllama-1.1b": 1_100_048_384,  # 22 layers, d 2048, GQA 32/4, d_ff 5632, vocab 32000
+            "olmoe-1b-7b": 6_919_096_320, "mixtral-8x7b": 46_702_792_704, "recurrentgemma-9b": 9_396_195_328}
+    if arch_id in full:
+        assert arch.param_count() == full[arch_id]
 
 
 # ----------------------------------------------------------------------------

@@ -85,17 +85,17 @@ def test_rwkv6_3b_param_count_matches_reference():
 
 
 @pytest.mark.parametrize("arch_id", ["tinyllama-1.1b", "mixtral-8x7b", "recurrentgemma-9b"])
-def test_unported_families_raise(arch_id):
-    arch = configs.get_arch(arch_id).reduced()
-    if arch.family == "dense":
-        # the attention families are ported now (tests/test_torch_attention.py)
-        assert arch.param_count() == ref_registry.param_count(ref_configs.get_arch(arch_id).reduced())
-        assert len(transformer.init_params(arch, torch.Generator().manual_seed(0), "cpu").layers) == arch.n_layers
-        return
-    with pytest.raises(NotImplementedError, match="A.12"):
-        arch.param_count()
-    with pytest.raises(NotImplementedError, match="A.12"):
-        transformer.init_params(arch, torch.Generator().manual_seed(0), "cpu")
+def test_every_family_builds_with_the_reference_param_count(arch_id):
+    # dense, MoE and the RG-LRU hybrid (tests/test_torch_attention.py,
+    # tests/test_torch_families.py): the reference's parameter count and,
+    # for the model drawn, its layer list
+    arch, ref_arch = configs.get_arch(arch_id).reduced(), ref_configs.get_arch(arch_id).reduced()
+    assert arch.param_count() == ref_registry.param_count(ref_arch)
+    model = transformer.init_params(arch, torch.Generator().manual_seed(0), "cpu")
+    assert len(model.layers) == arch.n_layers
+    assert [block.kind for block in model.layers] == [
+        kind for pattern, repeats in ref_transformer.layer_stages(ref_arch) for _ in range(repeats) for kind in pattern]
+    assert sum(p.numel() for p in model.parameters()) == ref_registry.param_count(ref_arch)
 
 
 def test_init_params_follows_the_reference_tree_and_distributions(ref):

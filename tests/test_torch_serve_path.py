@@ -7,8 +7,8 @@
   host sources and device tensors alive; shared window rings.
 * serve-loop pins -- zero-elapsed spans format instead of raising, empty
   decode slices do not expire the prompt epoch at W > T, ``--report-every
-  0`` prints no ``[metrics]`` line, ``--placement sharded`` runs, and an
-  unported family (MoE) raises ``NotImplementedError``.
+  0`` prints no ``[metrics]`` line, ``--placement sharded`` runs, and so
+  does the MoE family (mixtral-8x7b), once refused.
 * the launcher end to end against the reference's on the CPU, reduced
   RWKV6-3B, at ``--window-levels`` 0 and 2: the port gets the reference's
   weights (``interop.model_from_reference``) and prompts, and its decode
@@ -292,9 +292,11 @@ def test_serve_launcher_report_every_zero_prints_no_metrics_line(tmp_path):
 def test_serve_launcher_refuses_sharded_placement_and_unported_families():
     # sharded placement is ported (tests/test_torch_placement.py holds it to local)
     assert "distinct tokens/request" in _run_port(LAUNCH + ["--device", "cpu", "--placement", "sharded"])
-    with pytest.raises(NotImplementedError, match="A.12"):
-        serve.main(["--device", "cpu", "--arch", "mixtral-8x7b", "--requests", "1", "--prompt-len", "4",
-                    "--gen-len", "1"])
+    # so is every family (tests/test_torch_families.py holds MoE and the
+    # hybrid to the reference launcher)
+    out = _run_port(["--device", "cpu", "--arch", "mixtral-8x7b", "--requests", "1", "--prompt-len", "4",
+                     "--gen-len", "1"])
+    assert out.startswith("mixtral-8x7b: prefill ") and "distinct tokens/request" in out
 
 
 def _without_wall_times(text: str) -> list:

@@ -5,10 +5,11 @@
   bank, counters, bytes and estimates; likewise one single-sketch stream,
   and one epoch stream through a HybridBank and a WindowedBank.
 * ``chip_smoke.py``'s phases (kernels, stream, bank, hybrid, window,
-  countmin, cm_window, board, serve, launch, obs, placement, attn_serve)
-  rehearsed at a tiny size on the CPU (serve and launch: the reduced
-  RWKV6-3B; attn_serve: the reduced TinyLlama-1.1B), where every kernel
-  wrapper runs its plain version.
+  countmin, cm_window, board, serve, launch, obs, placement, attn_serve,
+  family_serve) rehearsed at a tiny size on the CPU (serve and launch: the
+  reduced RWKV6-3B; attn_serve: the reduced TinyLlama-1.1B; family_serve:
+  the reduced olmoe-1b-7b, mixtral-8x7b and recurrentgemma-9b), where every
+  kernel wrapper runs its plain version.
 * ``import repro_torch``, its model and serve modules and ``import
   chip_smoke`` pull in no ``jax`` and nothing of ``repro``.
 """
@@ -178,6 +179,52 @@ def test_chip_smoke_placement_and_attn_serve_phases_rehearse_on_the_cpu(tmp_path
     assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
 
 
+def test_chip_smoke_family_serve_phase_rehearses_on_the_cpu(tmp_path):
+    from repro_torch.obs import metrics
+
+    reset_launches()
+    family = chip_smoke.phase_family_serve(
+        "cpu", launch_args=("--requests", "3", "--prompt-len", "300", "--gen-len", "2"), reduce=True,
+        check_prompt=40, check_steps=4, route_prompt=300, batch_prompts=(5, 12, 30, 9, 17, 3), batch_new=4,
+        out_dir=tmp_path)
+    assert set(family["launcher"]) == set(chip_smoke.FAMILY_LAUNCH_ARCHS) and not metrics.enabled()
+    olmoe = family["launcher"]["olmoe-1b-7b"]
+    # reduced olmoe, 300-token groups: capacity 150 of 8 experts, some dropped
+    assert olmoe["prefill_route_calls"] == 2 and olmoe["capacity"] == 150 and olmoe["dropped_choices"] > 0
+    assert olmoe["collapse"]["collapsed_estimate"] < olmoe["collapse"]["estimate"] / 1.5
+    assert set(family["legs"]) == set(chip_smoke.FAMILY_CHECK_LAYERS)
+    for arch_id, legs in family["legs"].items():
+        assert max(legs["f32"]["prefill"], legs["f32"]["decode"]) <= chip_smoke.ATTN_F32_ATOL
+        assert legs["f32"].get("positions_after_a_flip", 0) == 0
+    assert family["legs"]["recurrentgemma-9b"]["scan_float64"]["tokens"] == 300
+    assert {row["tokens"] for row in family["batcher"].values()} == {24}
+    # on the CPU the wrappers run their plain versions and never count a launch
+    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+
+
+def test_chip_smoke_float64_routing_catches_a_wrong_tie_or_drop():
+    # a zero router: every probability ties, so experts 0..k-1 in order, and
+    # the queues past capacity drop; the higher index first, or a drop
+    # missed, is caught
+    arch = chip_smoke.get_arch("olmoe-1b-7b").reduced()
+    k, cap = arch.moe.top_k, 3
+    logits = torch.zeros((2, 5, arch.moe.num_experts))
+    order, keep = chip_smoke._routing_float64(logits, k, cap)
+    assert (order == torch.arange(k)).all() and keep.sum() == 2 * k * cap
+    good = {"cap": cap, "logits": logits, "expert_idx": order, "keep": keep}
+    assert chip_smoke._check_routing_float64([good], arch, "zero router") == 2 * k * (5 - cap)
+    for bad in (dict(good, expert_idx=order.flip(-1)), dict(good, keep=torch.ones_like(keep))):
+        with pytest.raises(AssertionError, match="float64"):
+            chip_smoke._check_routing_float64([bad], arch, "zero router")
+    # the near-tie rule of the bf16 legs: how far apart the experts a
+    # routing swaps lie in the logits
+    logits = torch.tensor([3.0, 2.0, 2.0, 1.0])
+    assert chip_smoke._tie_gap(logits, torch.tensor([0, 1])) == 0.0  # forward's own top 2
+    assert chip_smoke._tie_gap(logits, torch.tensor([0, 2])) == 0.0  # the tie taken the other way
+    assert chip_smoke._tie_gap(logits, torch.tensor([0, 3])) == 1.0  # expert 3 over expert 1 or 2
+    assert chip_smoke._tie_gap(logits, torch.tensor([1, 0])) == 1.0  # the order of the two swapped
+
+
 def test_chip_smoke_control_catches_a_wrong_intra_term(monkeypatch):
     # a kernel off by more than the sums' last places fails the serve check
     arch = chip_smoke.get_arch(chip_smoke.SERVE_ARCH).reduced()
@@ -217,6 +264,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.obs, repro_torch.serve.coalesce, repro_torch.launch.serve\n"
         "import repro_torch.launch.mesh, repro_torch.models.attention, repro_torch.serve.kvquant\n"
         "import repro_torch.serve.scheduler, repro_torch.sketch.dispatch\n"
+        "import repro_torch.models.moe, repro_torch.models.rglru\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -14,9 +14,11 @@ plan ("jnp").  Every test feeds both the same seeded numpy streams.
   ``merge_from``, ``deserialize``, the guards, and the fallback for a
   plugin backend without a bank or count-min path.
 
-The reference's MoE collapse tests (tests/test_telemetry.py) need
-``repro.models`` and wait for the models slice (ROADMAP A.12).  The
-reference's windowed boards call ``jax.core.trace_state_clean``, which jax
+* The reference's two MoE collapse tests (tests/test_telemetry.py) on the
+  port's ``moe.assignment_stream`` and board, with the packing and the
+  boards' reports held to the reference's as well.
+
+The reference's windowed boards call ``jax.core.trace_state_clean``, which jax
 0.9.0 moved; an autouse fixture aliases it back (ROADMAP §C).
 """
 
@@ -26,9 +28,13 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro import configs as ref_configs
+from repro.models import moe as ref_moe
 from repro.sketch import CMConfig as RefCMConfig
 from repro.sketch.hll import HLLConfig as RefConfig
 from repro.telemetry.sketchboard import StreamSketch as RefBoard
+from repro_torch.configs import get_arch
+from repro_torch.models import moe as moe_lib
 from repro_torch.sketch import plan as plan_registry
 from repro_torch.sketch import CMConfig, ExecutionPlan, HLLConfig, HyperLogLog
 from repro_torch.telemetry import StreamSketch
@@ -264,3 +270,40 @@ def test_plugin_backend_without_bank_or_cm_path_still_ingests(monkeypatch):
     assert plugin.serialize() == port.serialize()
     for name in chunks:
         assert plugin.topk(name, 4) == port.topk(name, 4)
+
+
+def test_moe_assignment_stream_detects_collapse():
+    """Distinct (token,expert) pairs drop when the router collapses."""
+    cfg = HLLConfig(p=12, hash_bits=64)
+    arch = get_arch("olmoe-1b-7b").reduced()
+    rng = np.random.default_rng(1)
+    B, S, k = 4, 64, arch.moe.top_k
+    tokens = rng.integers(0, 400, (B, S), np.int32)
+    healthy = rng.integers(0, arch.moe.num_experts, (B, S, k), np.int32)
+    collapsed = np.zeros((B, S, k), np.int32)  # everything -> expert 0
+
+    board = StreamSketch(cfg, device="cpu")
+    ref = RefBoard(RefConfig(p=12, hash_bits=64))
+    for name, experts in (("healthy", healthy), ("collapsed", collapsed)):
+        board.observe(name, moe_lib.assignment_stream(torch.from_numpy(tokens), torch.from_numpy(experts)))
+        ref.observe(name, ref_moe.assignment_stream(jnp.asarray(tokens), jnp.asarray(experts)))
+    rep = board.report()
+    assert rep["healthy"]["estimate"] > 1.5 * rep["collapsed"]["estimate"]
+    assert board.report(exact=True) == ref.report(exact=True)
+
+
+def test_assignment_stream_packing():
+    pairs = moe_lib.assignment_stream(torch.tensor([[1, 2]], dtype=torch.int32),
+                                      torch.tensor([[[3, 4], [5, 6]]], dtype=torch.int32))
+    assert pairs.dtype == torch.int32
+    np.testing.assert_array_equal(pairs.numpy(), [(1 << 8) | 3, (1 << 8) | 4, (2 << 8) | 5, (2 << 8) | 6])
+    # bit-identical to the reference's over the token ids of the largest
+    # vocabulary and every expert index, int64 indices as the port's router
+    # returns them included
+    rng = np.random.default_rng(2)
+    vocab = max(ref_configs.get_arch(a).vocab_size for a in ref_configs.ARCH_IDS)
+    tokens = rng.integers(0, vocab, (3, 50), np.int32)
+    experts = rng.integers(0, 64, (3, 50, 8), np.int32)
+    want = np.asarray(ref_moe.assignment_stream(jnp.asarray(tokens), jnp.asarray(experts)))
+    for idx in (torch.from_numpy(experts), torch.from_numpy(experts).long()):
+        np.testing.assert_array_equal(moe_lib.assignment_stream(torch.from_numpy(tokens), idx).numpy(), want)
