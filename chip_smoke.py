@@ -13,7 +13,7 @@ checkout's, so that two trees are measured by the same code: run parent,
 change, change, parent in one call to compare them.  Phases, each of which
 raises (exit code 1) when it fails:
 
-  build    compile the ten kernels (eight sources) from
+  build    compile the eleven kernels (nine sources) from
            src/repro_torch/kernels/csrc with nvcc, one process per source,
            all at once; print the seconds and ptxas's register,
            shared-memory and spill report.
@@ -52,7 +52,12 @@ raises (exit code 1) when it fails:
            (16, 64, 32), (5, 17, 64) and (3, 33, 30), and under strong
            decay (decay scale 50) at (5120, 64, 64), (64, 64, 64) and
            (2, 32, 32), within rtol 1e-5 and atol 1e-4, every output
-           finite.
+           finite; rwkv_intra_bwd at the training grid (1280, 64, 64), at
+           (3, 1, 64), (7, 40, 64), (5, 17, 30) and (16, 64, 32), and
+           under strong decay at (1280, 64, 64) and (2, 32, 32): every
+           gradient finite and within 1e-5 of its largest magnitude of the
+           float32 plain version, both printed against the float64 plain
+           version.
   stream   the paper's NIC deployment (Tab. IV), lengthened: 2^26 uint32
            items in 16 chunks of 2^22 through ``update_registers`` under
            "cuda" and "cuda_pipelined" (k = 8), for (p, H) in
@@ -199,6 +204,27 @@ raises (exit code 1) when it fails:
            scan; a ContinuousBatcher of 6 prompts of 37-511 tokens over 4
            slots at full width in float32 for olmoe-1b-7b and
            recurrentgemma-9b, held to solo decodes as in attn_serve.
+  train    the port's train launcher, ``repro_torch.launch.train.main``,
+           at full width for smollm-360m and TinyLlama-1.1B (8 x 1024
+           tokens a step) and RWKV6-3B (4 x 1024 in 2 micro-batches), 4
+           steps each with float32 AdamW state at --lr 2e-5: per arch tokens/s (steps
+           after the first), peak device memory, the tap's share of a step
+           (CUDA events), loss, distinct_tokens and grad norm per step, the
+           exact-finalized estimate against the exact distinct tokens
+           (within 4 sigma); the tap's registers equal to the plain
+           hll.update of the same tokens; the card's zipf batches against
+           the CPU's (each differing token one off at an integer boundary,
+           no more than zipf_flip_bound: the expected number of tokens within
+           a float32 ulp of an integer); the loss falling; hll_update_fused launched
+           once a step, and for RWKV6-3B rwkv_intra twice (the forward and
+           the checkpoint's recompute) and rwkv_intra_bwd once a layer and
+           micro-batch.  Then RWKV6-3B's loss and gradients of one 2 x 1024
+           micro-batch with the kernel pair against the plain pair, within 2
+           x a control's change (the plain pair's outputs times 1 + 2^-20
+           N(0, 1)); and, under torch.use_deterministic_algorithms, a
+           2-layer full-width smollm-360m: 4 steps straight equal to 2, a
+           checkpoint and a resumed run, and a save/restore round trip,
+           every leaf.
   timing   each kernel's device time (CUDA events over warm launches
            queued back to back) and host time per call, its bound (the
            larger of bytes over 3.35 TB/s and float32 operations over
@@ -218,8 +244,9 @@ raises (exit code 1) when it fails:
            alone and their cm_scatter_add alone, full-window reads of the
            count-min ring, full-width RWKV6-3B, TinyLlama-1.1B,
            olmoe-1b-7b and recurrentgemma-9b prefills and decode steps (one
-           model on the card at a time),
-           after a warm-up step: wall and device-busy time per step, idle
+           model on the card at a time), and, only when --profile names
+           them (train_attn, train_rwkv), a full-width train step of
+           TinyLlama-1.1B and of RWKV6-3B, after a warm-up step: wall and device-busy time per step, idle
            share, top device entries.
 
 The launch counters are zeroed just before the stream, bank, hybrid,
@@ -233,7 +260,8 @@ launched there.  They are zeroed just before the placement phase and read
 just after; every kernel of PLACEMENT_KERNELS must have launched there;
 and just before and after each launcher run of the attn_serve and
 family_serve phases, where every kernel of ATTN_LAUNCH_KERNELS must have
-launched.  After the kernels
+launched, and of the train phase, where the train path's kernels must have
+launched the counts above.  After the kernels
 phase it checks that the count-min main
 path's shapes take the tiled cm_scatter_add, and the bank tick the tiled
 bank_scatter_max.
@@ -249,6 +277,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -286,7 +315,12 @@ from repro_torch.kernels import bank_scatter as bank_module  # noqa: E402
 from repro_torch.kernels import sparse_scatter as sparse_module  # noqa: E402
 from repro_torch.kernels import cm_scatter as cm_module  # noqa: E402
 from repro_torch.kernels import hll_fused as hll_module  # noqa: E402
-from repro_torch.kernels.rwkv_intra import rwkv_intra, rwkv_intra_plain  # noqa: E402
+from repro_torch.kernels.rwkv_intra import (  # noqa: E402
+    rwkv_intra,
+    rwkv_intra_bwd,
+    rwkv_intra_bwd_plain,
+    rwkv_intra_plain,
+)
 from repro_torch.kernels.sparse_scatter import sparse_scatter_coo, sparse_scatter_coo_plain  # noqa: E402
 from repro_torch.kernels.window_fold import (  # noqa: E402
     window_fold_max,
@@ -372,6 +406,13 @@ SERVE_NOISE, SERVE_NOISE_FACTOR = 2.0 ** -20, 2.0
 # 0.1 / 0.15 at the reduced size)
 SERVE_TF_ATOL = 0.15
 
+# rwkv_intra_bwd against its plain version: the training grid (a micro-batch
+# of 2 sequences x 16 chunks x 40 heads), C = 1, ragged chunks, N = 30, and
+# strong decay (scale 50); each gradient within INTRA_BWD_TOL of its largest
+# magnitude
+INTRA_BWD_SHAPES = ((1280, 64, 64), (3, 1, 64), (7, 40, 64), (5, 17, 30), (16, 64, 32))
+INTRA_BWD_STRONG = ((1280, 64, 64), (2, 32, 32))
+INTRA_BWD_TOL = 1e-5
 KERNEL_SOURCES = {
     "hash_rank": ("src/repro_torch/kernels/csrc/hash_rank.cu", "src/repro/kernels/hash_rank.py:44"),
     "hll_update_fused": ("src/repro_torch/kernels/csrc/hll_fused.cu", "src/repro/kernels/hll_fused.py:91"),
@@ -383,12 +424,21 @@ KERNEL_SOURCES = {
     "cm_scatter_add": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:94"),
     "cm_window_fold_sum": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:186"),
     "rwkv_intra": ("src/repro_torch/kernels/csrc/rwkv_intra.cu", "src/repro/kernels/rwkv_intra.py:54"),
+    # no Pallas backward: the reference differentiates its inline chunk math
+    # (time_mix_chunked) with jax.grad
+    "rwkv_intra_bwd": ("src/repro_torch/kernels/csrc/rwkv_intra_bwd.cu",
+                       "src/repro/models/rwkv6.py:159 (jax.grad of time_mix_chunked's chunk math)"),
 }
 # timed in rounds, min/median/max printed
 SPREAD_KERNELS = ("cm_scatter_add", "hll_update_fused", "bank_scatter_max", "bucket_fold")
 SPREAD_ROUNDS = 5
 PROFILE_ATTEMPTS = 3  # recordings of a profile step before its partial one is reported
-SERVE_KERNELS = ("rwkv_intra",)  # launched on the serve phase; the others on the sketch phases
+# profiled only when --profile names them: a full-width train step launches
+# ~10^5 kernels, and their recording took 399 s of a call (NVIDIA H100 80GB
+# HBM3, 700.00 W), a third of the script's time limit
+PROFILE_ON_REQUEST = ("train_attn", "train_rwkv")
+SERVE_KERNELS = ("rwkv_intra",)  # launched on the serve phase; the others but the next on the sketch phases
+TRAIN_ONLY_KERNELS = ("rwkv_intra_bwd",)  # launched on the train phase alone
 
 
 def _sorted_unique(values: np.ndarray) -> np.ndarray:
@@ -440,6 +490,40 @@ def _intra_inputs(g: int, c: int, n: int, gen: torch.Generator, device, decay_sc
     lw = -(0.01 + (decay_scale - 0.01) * torch.rand((g, c, n), generator=gen, device=device))
     lcum = torch.cumsum(lw, dim=1)
     return r, k, v, lcum - lw, lcum, normal(g, n, std=0.3)
+
+
+def _intra_bwd_inputs(g: int, c: int, n: int, gen: torch.Generator, device, decay_scale: float = 1.0) -> tuple:
+    """_intra_inputs and an output gradient dy ~ N(0, 1)."""
+    args = _intra_inputs(g, c, n, gen, device, decay_scale)
+    return args + (torch.randn((g, c, n), generator=gen, device=device),)
+
+
+def _scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the largest |want|."""
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _intra_bwd_case(args, what: str, tol: float = INTRA_BWD_TOL) -> dict:
+    """rwkv_intra_bwd against rwkv_intra_bwd_plain (float32) and both against
+    the float64 plain version; raises unless every gradient is finite and
+    within ``tol`` of its largest magnitude of the float32 plain one."""
+    got = rwkv_intra_bwd(*args)
+    plain = rwkv_intra_bwd_plain(*args)
+    wide = rwkv_intra_bwd_plain(*(a.double() for a in args))
+    row = {"max_abs_err": 0.0, "kernel_vs_plain": 0.0, "kernel_vs_float64": 0.0, "plain_vs_float64": 0.0}
+    for name, gt, pt, wt in zip(("r", "k", "v", "lex", "lcum", "u"), got, plain, wide):
+        if not (torch.isfinite(gt).all() and torch.isfinite(pt).all()):
+            raise AssertionError(f"{what}: d{name} not finite")
+        err = _scaled_err(gt, pt)
+        if err > tol:
+            raise AssertionError(f"{what}: d{name} {err} of its largest magnitude from the plain version, "
+                                 f"beyond {tol}")
+        row["max_abs_err"] = max(row["max_abs_err"], float((gt - pt).abs().max()))
+        row["kernel_vs_plain"] = max(row["kernel_vs_plain"], err)
+        row["kernel_vs_float64"] = max(row["kernel_vs_float64"], _scaled_err(gt, wt))
+        row["plain_vs_float64"] = max(row["plain_vs_float64"], _scaled_err(pt, wt))
+    return row
 
 
 def _stream_items(n: int, rng: np.random.Generator) -> np.ndarray:
@@ -603,7 +687,8 @@ def _bank_cases(device, n: int, rows: int, rng: np.random.Generator) -> float:
 
 def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
                   hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, cm_cells: int = CM_CELL_CAP,
-                  intra_shapes=INTRA_SHAPES, intra_strong=INTRA_STRONG) -> dict:
+                  intra_shapes=INTRA_SHAPES, intra_strong=INTRA_STRONG, intra_bwd_shapes=INTRA_BWD_SHAPES,
+                  intra_bwd_strong=INTRA_BWD_STRONG) -> dict:
     """Every kernel against its plain version at main-path and ragged sizes."""
     rng = np.random.default_rng(SEED)
     errs = {name: 0.0 for name in KERNEL_SOURCES}
@@ -830,8 +915,19 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
                        f"rwkv_intra (G, C, N) = {(g, c, nn)}, decay scale {decay}"),
         )
         del args
+    # rwkv_intra_bwd: each gradient against the float32 plain version, and
+    # both against the float64 plain version
+    cases = [(shape, 1.0) for shape in intra_bwd_shapes] + [(shape, 50.0) for shape in intra_bwd_strong]
+    bwd = {}
+    for (g, c, nn), decay in cases:
+        row = _intra_bwd_case(_intra_bwd_inputs(g, c, nn, gen, device, decay),
+                              f"rwkv_intra_bwd (G, C, N) = {(g, c, nn)}, decay scale {decay}")
+        bwd[f"{(g, c, nn)} decay {decay}"] = row
+        errs["rwkv_intra_bwd"] = max(errs["rwkv_intra_bwd"], row.pop("max_abs_err"))
+    print(f"[kernels] rwkv_intra_bwd, each gradient's max |difference| over its largest magnitude (within "
+          f"{INTRA_BWD_TOL} of the plain version's): {json.dumps(bwd)}")
     print(f"[kernels] sketch kernels bit-identical to their plain versions, rwkv_intra within rtol "
-          f"{INTRA_RTOL} atol {INTRA_ATOL}: max_abs_err {errs}")
+          f"{INTRA_RTOL} atol {INTRA_ATOL}, rwkv_intra_bwd as above: max_abs_err {errs}")
     return errs
 
 
@@ -2272,6 +2368,354 @@ def phase_family_serve(device, archs=FAMILY_LAUNCH_ARCHS, launch_args=None, kern
     return out
 
 
+# ----------------------------------------------------------------------------
+# training
+# ----------------------------------------------------------------------------
+
+# the train launcher at full width: (arch, global batch, sequence, grad_accum).
+# RWKV6-3B's float32 parameters, gradients and AdamW moments take 16 bytes a
+# parameter (~50 GB), so it takes 4 sequences a step in 2 micro-batches
+TRAIN_RUNS = (("smollm-360m", 8, 1024, 1), (ATTN_ARCH, 8, 1024, 1), (SERVE_ARCH, 4, 1024, 2))
+TRAIN_STEPS = 4
+# --lr of the full-width runs.  With 4 steps the launcher's warmup is one
+# step, so the first AdamW step moves every weight by the whole rate; the
+# launcher's 3e-3 is for the reduced archs.  Measured at full width (NVIDIA
+# H100 80GB HBM3, 700.00 W), the loss over 4 steps: at 3e-3 TinyLlama-1.1B
+# 10.88, 11.96, 20.67, 12.06; at 3e-4 smollm-360m fell (10.996 to 9.621),
+# TinyLlama-1.1B 10.88, 10.28, 13.07, 10.46 and RWKV6-3B 11.60, 22.00,
+# 17.13, 13.91.  The reference's steps rise the same way after a first
+# update at the whole rate: tests/test_torch_train.py's full-width witness
+# holds 2 layers of each at 3e-4 to it
+TRAIN_LR = 2e-5
+TRAIN_SKETCH_P = 14  # the launcher's --sketch-p default
+TRAIN_PAIR_BATCH = (2, 1024)  # the kernel pair against the plain pair: one RWKV6-3B micro-batch
+TRAIN_CKPT = ("smollm-360m", 2, 2, 256, 4)  # arch, layers, batch, sequence, steps of the checkpoint leg
+
+
+def intra_bwd_flops(g: int, c: int, n: int) -> int:
+    """float32 operations of rwkv_intra_bwd on (G, C, N) cells, the exps not
+    counted: per pair s < t and n, A's subtract, two multiplies and add, dA's
+    multiply-add, and P's and Q's subtract, two multiplies and add; per
+    (s <= t, n) dv's multiply-add; per (t, n) the diagonal terms of A, dA,
+    dr, dk, dLex, dL and du (12)."""
+    pairs = c * (c - 1) // 2
+    return g * n * (pairs * (4 + 2 + 4 + 4) + 2 * (c * (c + 1) // 2) + 12 * c)
+
+
+def zipf_flip_bound(vocab: int, tokens: int) -> int:
+    """The most zipf tokens two float32 ``exp``s may set apart among
+    ``tokens`` tokens of a vocab (ROADMAP C.3): the expected number within
+    one float32 ulp of an integer, where an exp one ulp off can cross it.
+    A token x lies within ulp(x) <= x 2^-23 of an integer with probability
+    <= x 2^-22, and x is log-uniform over [1, V), of mean (V - 1) / ln V."""
+    return math.ceil(tokens * 2.0 ** -22 * (vocab - 1) / math.log(vocab))
+
+
+def zipf_flips(got: np.ndarray, want: np.ndarray, argument: np.ndarray, vocab: int) -> int:
+    """How many zipf tokens differ between ``got`` and ``want`` (any shape,
+    one float32 ``argument`` per token); raises unless each differs by one at
+    an integer boundary: the float64 exp of its float32 argument within 2
+    float32 ulps of an integer (or both clamped to the last token)."""
+    got, want = got.reshape(-1).astype(np.int64), want.reshape(-1).astype(np.int64)
+    where = np.nonzero(got != want)[0]
+    if np.abs(got[where] - want[where]).max(initial=0) > 1:
+        raise AssertionError("zipf tokens differ by more than one")
+    x = np.exp(argument.reshape(-1)[where].astype(np.float64))
+    near = np.abs(x - np.rint(x)) <= 2 * np.spacing(x.astype(np.float32)).astype(np.float64)
+    if not (near | (np.minimum(got[where], want[where]) == vocab - 1)).all():
+        raise AssertionError(f"zipf tokens differ away from an integer boundary: {x[~near][:4]}")
+    return len(where)
+
+
+def _train_launcher_run(device, arch_id: str, batch: int, seq: int, accum: int, steps: int, reduce: bool,
+                        lr: float) -> dict:
+    """One in-process run of ``repro_torch.launch.train.main``: per step its
+    wall (synchronized), device time (CUDA events) and the tap's device time,
+    the metrics and the batch; launches, peak memory, the final state."""
+    import gc
+    import io
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import step as train_step
+
+    on_card = torch.device(device).type == "cuda"
+    argv = ["--arch", arch_id, "--steps", str(steps), "--global-batch", str(batch), "--seq-len", str(seq),
+            "--grad-accum", str(accum), "--lr", str(lr), "--device", str(device)] + (
+                [] if reduce else ["--full-config"])
+    event = lambda: torch.cuda.Event(enable_timing=True)
+    rows, taps = [], []
+    make, tap = train_loop.make_jitted_step, train_step.datapath_tap
+
+    def timed_tap(*args):
+        marks = (event(), event()) if on_card else None
+        if marks:
+            marks[0].record()
+        out = tap(*args)
+        if marks:
+            marks[1].record()
+        taps.append(marks)
+        return out
+
+    def timed_make(arch, cfg):
+        fn = make(arch, cfg)
+
+        def stepped(state, step_batch):
+            marks = (event(), event()) if on_card else None
+            _sync(device)
+            t0 = time.perf_counter()
+            if marks:
+                marks[0].record()
+            state, metrics = fn(state, step_batch)
+            if marks:
+                marks[1].record()
+            _sync(device)
+            rows.append({"wall_s": time.perf_counter() - t0, "marks": marks,
+                         "metrics": {k: float(v) for k, v in metrics.items()}, "tokens": step_batch["tokens"]})
+            return state, metrics
+        return stepped
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    printed = io.StringIO()
+    train_loop.make_jitted_step, train_step.datapath_tap = timed_make, timed_tap
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(printed):
+            state, _ = launcher.main(argv)
+        _sync(device)
+    finally:
+        train_loop.make_jitted_step, train_step.datapath_tap = make, tap
+    launches = launch_counts()
+    for row, tap_marks in zip(rows, taps):
+        marks = row.pop("marks")
+        row["device_ms"] = marks[0].elapsed_time(marks[1]) if on_card else None
+        row["tap_ms"] = tap_marks[0].elapsed_time(tap_marks[1]) if on_card else None
+    return {"rows": rows, "launches": launches, "state": state, "printed": printed.getvalue().splitlines(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device) if on_card else None}
+
+
+def _train_checks(device, arch, run: dict, batch: int, seq: int, accum: int, steps: int, lr: float) -> dict:
+    """A launcher run's checks: launches, the tap against the plain
+    ``hll.update``, the finalized estimate against the exact distinct
+    tokens, the zipf flips of the card's batches against the CPU's, the
+    loss falling; returns the run's numbers."""
+    from repro_torch.data.pipeline import DataConfig, batch_at_step, zipf_exponent
+    from repro_torch.sketch import hll
+
+    on_card = torch.device(device).type == "cuda"
+    rows, launches = run["rows"], run["launches"]
+    layers = arch.n_layers
+    want = {"hll_update_fused": steps}
+    if arch.mixer == "rwkv6":
+        # the forward and the checkpoint's recompute, and one backward, a
+        # layer and micro-batch
+        want.update(rwkv_intra=2 * layers * accum * steps, rwkv_intra_bwd=layers * accum * steps)
+    got = {name: launches[name] for name in want}
+    if on_card and got != want:
+        raise AssertionError(f"train {arch.name}: launches {got}, expected {want}")
+    cfg = HLLConfig(p=TRAIN_SKETCH_P, hash_bits=64)
+    tokens = torch.cat([row["tokens"].reshape(-1) for row in rows])
+    regs = run["state"]["sketch"]
+    if not torch.equal(regs, hll.update(hll.init_registers(cfg, device), tokens, cfg)):
+        raise AssertionError(f"train {arch.name}: the tap's registers differ from the plain hll.update")
+    exact = int(torch.unique(tokens).numel())
+    estimate = hll.estimate(regs, cfg)
+    if abs(estimate - exact) > 4 * hll.standard_error(cfg) * exact:
+        raise AssertionError(f"train {arch.name}: estimate {estimate} vs exact {exact} distinct tokens")
+    data = DataConfig(vocab_size=arch.vocab_size, global_batch=batch, seq_len=seq)
+    flips = 0
+    for s in range(steps):
+        mine, cpu = batch_at_step(data, s, device), batch_at_step(data, s, "cpu")
+        flips += zipf_flips(mine["tokens"].cpu().numpy(), cpu["tokens"].numpy(),
+                            zipf_exponent(data, s, "cpu")[:-1].numpy(), arch.vocab_size)
+    if flips > zipf_flip_bound(arch.vocab_size, steps * batch * seq):
+        raise AssertionError(f"train {arch.name}: {flips} zipf tokens differ from the CPU's")
+    losses = [row["metrics"]["loss"] for row in rows]
+    if not all(np.isfinite(v) for row in rows for v in row["metrics"].values()):
+        raise AssertionError(f"train {arch.name}: metrics not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train {arch.name}: the loss did not fall: {losses}")
+    warm = rows[1:] or rows
+    step_ms = [row["device_ms"] for row in warm]
+    tap_ms = [row["tap_ms"] for row in warm]
+    return {
+        "arch": arch.name, "params": arch.param_count(), "global_batch": batch, "seq_len": seq, "grad_accum": accum,
+        "steps": steps, "lr": lr, "tokens_per_s": batch * seq * len(warm) / sum(row["wall_s"] for row in warm),
+        "first_step_s": rows[0]["wall_s"], "step_wall_s": [row["wall_s"] for row in rows],
+        "step_device_ms": [row["device_ms"] for row in rows],
+        "tap_ms": [row["tap_ms"] for row in rows],
+        "tap_share": sum(tap_ms) / sum(step_ms) if on_card else None,
+        "max_memory_allocated": run["max_memory_allocated"],
+        "loss": losses, "distinct_tokens": [row["metrics"]["distinct_tokens"] for row in rows],
+        "grad_norm": [row["metrics"]["grad_norm"] for row in rows],
+        "estimate": estimate, "exact_distinct": exact, "zipf_flips_card_vs_cpu": flips,
+        "launches": got,
+    }
+
+
+def _grads_with(model, batch, arch, fwd, bwd) -> tuple:
+    """Loss and gradients of ``loss_fn`` with ``fwd``/``bwd`` as the intra
+    term's pair."""
+    before = (rwkv6.rwkv_intra, rwkv6.rwkv_intra_bwd)
+    rwkv6.rwkv_intra, rwkv6.rwkv_intra_bwd = fwd, bwd
+    try:
+        loss, _ = transformer.loss_fn(model, batch, arch)
+        grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True, materialize_grads=True)
+    finally:
+        rwkv6.rwkv_intra, rwkv6.rwkv_intra_bwd = before
+    return loss.detach(), grads
+
+
+def _grad_stats(grads, want) -> dict:
+    """The global norm of ``grads`` and their mean |difference| from ``want``."""
+    from repro_torch.optim import adamw
+
+    total = sum(float((g - w).abs().sum()) for g, w in zip(grads, want))
+    count = sum(g.numel() for g in grads)
+    return {"grad_norm": float(adamw.global_norm(dict(enumerate(grads)))), "mean_abs_grad_diff": total / count}
+
+
+def _train_pair_check(device, arch, batch_shape) -> dict:
+    """One RWKV6 micro-batch's loss and gradients with the kernel pair
+    (rwkv_intra, rwkv_intra_bwd), with the plain pair, and with a control:
+    the plain pair's outputs times (1 + SERVE_NOISE * z).  The kernel pair's
+    loss, global grad norm and mean |gradient difference| from the plain
+    pair's must lie within SERVE_NOISE_FACTOR times the control's (a loss or
+    norm within 4 float32 ulps counts as equal)."""
+    from repro_torch.data.pipeline import DataConfig, batch_at_step
+
+    import gc
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    model = transformer.init_params(arch, gen, device)
+    model.requires_grad_(True)
+    b, s = batch_shape
+    batch = batch_at_step(DataConfig(arch.vocab_size, b, s, seed=1), 0, device)
+
+    def noisy(t):
+        return t * (1.0 + SERVE_NOISE * torch.randn(t.shape, generator=gen, device=t.device))
+
+    plain_loss, plain = _grads_with(model, batch, arch, rwkv_intra_plain, rwkv_intra_bwd_plain)
+    want = _grad_stats(plain, plain)
+    rows = {"plain": {"loss": float(plain_loss), **want}}
+    pairs = {"kernel": (rwkv_intra, rwkv_intra_bwd),
+             "control": (lambda *a: noisy(rwkv_intra_plain(*a)),
+                         lambda *a: tuple(noisy(t) for t in rwkv_intra_bwd_plain(*a)))}
+    for name, (fwd, bwd) in pairs.items():
+        loss, grads = _grads_with(model, batch, arch, fwd, bwd)
+        rows[name] = {"loss": float(loss), **_grad_stats(grads, plain)}
+        del grads
+        gc.collect()
+    del plain, model
+    gc.collect()
+    for key in ("loss", "grad_norm", "mean_abs_grad_diff"):
+        ref = rows["plain"][key]
+        got, ctrl = abs(rows["kernel"][key] - ref), abs(rows["control"][key] - ref)
+        floor = 0.0 if key == "mean_abs_grad_diff" else 4 * float(np.spacing(np.float32(ref)))
+        if got > max(SERVE_NOISE_FACTOR * ctrl, floor):
+            raise AssertionError(f"train pair {key}: kernel {got} from the plain pair, beyond "
+                                 f"{SERVE_NOISE_FACTOR} x the control's {ctrl}: {rows}")
+    return rows
+
+
+def _train_ckpt_leg(device, arch, batch: int, seq: int, steps: int, out_dir: Path) -> dict:
+    """Under torch.use_deterministic_algorithms(True): ``steps`` steps
+    straight against half of them, a checkpoint and a resumed run -- every
+    leaf equal; and a save/restore round trip into a fresh state -- every
+    leaf equal."""
+    import os
+    import shutil
+
+    from repro_torch import interop
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import step as train_step
+
+    cfg = train_step.TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=steps),
+                                 sketch=HLLConfig(p=TRAIN_SKETCH_P, hash_bits=64))
+    data = DataConfig(vocab_size=arch.vocab_size, global_batch=batch, seq_len=seq)
+    root = out_dir / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    quiet = lambda line: None
+
+    def same(a: dict, b: dict, what: str) -> int:
+        leaves_a, leaves_b = interop.train_state_leaves(a), interop.train_state_leaves(b)
+        if [p for p, _, _ in leaves_a] != [p for p, _, _ in leaves_b]:
+            raise AssertionError(f"{what}: the states' leaves differ")
+        for (path, ta, _), (_, tb, _) in zip(leaves_a, leaves_b):
+            if not all(torch.equal(x, y) for x, y in zip(ta, tb)):
+                raise AssertionError(f"{what}: leaf {path} differs")
+        return len(leaves_a)
+
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = env or ":4096:8"  # cuBLAS's deterministic mode
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        full, _ = train_loop.train(arch, cfg, data, train_loop.LoopConfig(steps, ckpt_every=10 ** 9),
+                                   log_fn=quiet, device=device)
+        ck = str(root / "resume")
+        train_loop.train(arch, cfg, data, train_loop.LoopConfig(steps // 2, ckpt_every=steps // 2, ckpt_dir=ck),
+                         log_fn=quiet, device=device)
+        resumed, _ = train_loop.train(arch, cfg, data, train_loop.LoopConfig(steps, ckpt_every=10 ** 9, ckpt_dir=ck),
+                                      log_fn=quiet, device=device)
+        leaves = same(resumed, full, "resumed run")
+        ckpt.save(full, str(root / "round_trip"), steps, async_write=True).join()
+        template = train_loop.init_state(arch, cfg, SEED + 41, torch.device(device))
+        same(ckpt.restore(template, str(root / "round_trip"), steps), full, "round trip")
+        wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(before)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        shutil.rmtree(root, ignore_errors=True)
+    return {"arch": arch.name, "layers": arch.n_layers, "steps": steps, "leaves": leaves, "wall_s": wall,
+            "resumed_equal": True, "round_trip_equal": True}
+
+
+def phase_train(device, runs=TRAIN_RUNS, steps: int = TRAIN_STEPS, lr: float = TRAIN_LR, reduce: bool = False,
+                pair_batch=TRAIN_PAIR_BATCH, ckpt=TRAIN_CKPT, out_dir: Path = BUILD) -> dict:
+    """Training through ``repro_torch.launch.train.main`` at full width
+    (``reduce``: the reduced archs, for the CPU rehearsal): per arch its
+    tokens/s, peak memory, the tap's share of a step, loss and estimates,
+    launches; the kernel pair's whole step against the plain pair's and a
+    control's; the checkpoint leg.  (rwkv_intra_bwd against its plain
+    version is in the kernels phase.)  The launch counts are zeroed just before each launcher run and
+    read just after it."""
+    import gc
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = {"runs": {}}
+    for arch_id, batch, seq, accum in runs:
+        arch = get_arch(arch_id).reduced() if reduce else get_arch(arch_id)
+        run = _train_launcher_run(device, arch_id, batch, seq, accum, steps, reduce, lr)
+        for line in run["printed"]:
+            print(f"[train] {arch_id} | {line}")
+        row = _train_checks(device, arch, run, batch, seq, accum, steps, lr)
+        del run
+        gc.collect()
+        print(f"[train] {arch_id}: {json.dumps(row)}")
+        out["runs"][arch_id] = row
+
+    arch = get_arch(SERVE_ARCH).reduced() if reduce else get_arch(SERVE_ARCH)
+    out["pair"] = _train_pair_check(device, arch, pair_batch)
+    print(f"[train] {SERVE_ARCH} kernel pair against the plain pair and a control: {json.dumps(out['pair'])}")
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    arch_id, layers, batch, seq, ck_steps = ckpt
+    arch = get_arch(arch_id).reduced() if reduce else dataclasses.replace(get_arch(arch_id), n_layers=layers)
+    out["checkpoint"] = _train_ckpt_leg(device, arch, batch, seq, ck_steps, out_dir)
+    print(f"[train] checkpoint leg: {json.dumps(out['checkpoint'])}")
+    return out
+
+
 @contextlib.contextmanager
 def _passthrough(planlib, metrics):
     """No observability code on the bank path: the registry's raw backends
@@ -2474,7 +2918,8 @@ def intra_flops(g: int, c: int, n: int) -> int:
 
 
 def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: int = HYBRID_ROWS,
-                 window: int = WINDOW, intra_shape=INTRA_SHAPES[0], only=None) -> dict:
+                 window: int = WINDOW, intra_shape=INTRA_SHAPES[0], intra_bwd_shape=INTRA_BWD_SHAPES[0],
+                 only=None) -> dict:
     """Kernel, plain and library times at the main path's shapes; ``only``
     (kernel names) times those alone, without the variants."""
     rng = np.random.default_rng(SEED + 2)
@@ -2524,6 +2969,9 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
     # rwkv_intra at the serve prefill's grid: 8 requests x 16 chunks x 40 heads
     ig, ic, inn = intra_shape
     intra_args = _intra_inputs(ig, ic, inn, gen, device)
+    # rwkv_intra_bwd at the training grid: 2 sequences x 16 chunks x 40 heads
+    bg, bc, bn = intra_bwd_shape
+    bwd_args = _intra_bwd_inputs(bg, bc, bn, gen, device)
     calls = {
         "hash_rank": (
             (lambda x: hash_rank(x, cfg), streams),
@@ -2588,10 +3036,18 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
             None,
             4 * (6 * ig * ic * inn + ig * inn),
         ),
+        # no one PyTorch call computes the gradient either; its inputs: six
+        # tiles and u; its outputs: five tiles and du per cell
+        "rwkv_intra_bwd": (
+            (rwkv_intra_bwd, [bwd_args]),
+            (rwkv_intra_bwd_plain, [bwd_args]),
+            None,
+            4 * (11 * bg * bc * bn + 2 * bg * bn),
+        ),
     }
     # float32 operations where the guide's peak table has a rate for them;
     # the sketch kernels' integer work has none, so bytes bound them
-    flops = {"rwkv_intra": intra_flops(ig, ic, inn)}
+    flops = {"rwkv_intra": intra_flops(ig, ic, inn), "rwkv_intra_bwd": intra_bwd_flops(bg, bc, bn)}
     out = {}
     if only is not None:
         calls = {name: calls[name] for name in only}
@@ -2723,7 +3179,10 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     full-width RWKV6-3B ``engine.prefill`` of 8 x 1024 tokens, or one
     ``engine.decode_step`` of the 8 requests after it, the same two for
     TinyLlama-1.1B, olmoe-1b-7b (moe_*) and recurrentgemma-9b (hybrid_*),
-    or the bank tick over PLACEMENT_SHARDS row blocks;
+    the bank tick over PLACEMENT_SHARDS row blocks, or one ``train_step``
+    at full width of TinyLlama-1.1B (8 x 1024 tokens) or RWKV6-3B (4 x
+    1024 in 2 micro-batches) with AdamW and the tap (these two only when
+    ``only`` names them: PROFILE_ON_REQUEST);
     ``only`` (step names) profiles those alone.
     Prints the wall time per step (without the profiler), the
     card's busy time per step (the sum of its kernel and copy times, from
@@ -2753,7 +3212,7 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
     hx = torch.from_numpy(hitems).to(device).tensor_split(HYBRID_CHUNKS)
 
     def wanted(step: str) -> bool:
-        return only is None or step in only
+        return step in only if only is not None else step not in PROFILE_ON_REQUEST
 
     # the states that take long to fill are filled only where profiled (the
     # data of the others does not change)
@@ -2799,6 +3258,19 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
                    ("moe_prefill", "moe_decode"): ("olmoe-1b-7b", SEED + 13),
                    ("hybrid_prefill", "hybrid_decode"): ("recurrentgemma-9b", SEED + 14)}
 
+    # a train step at full width (the train phase's batches), one state at a time
+    train_steps = {"train_attn": (ATTN_ARCH, 8, 1024, 1, SEED + 15), "train_rwkv": (SERVE_ARCH, 4, 1024, 2, SEED + 16)}
+
+    def train_step_of(arch_id: str, batch: int, seq: int, accum: int, seed: int):
+        from repro_torch.data.pipeline import DataConfig, batch_at_step
+        from repro_torch.train import step as train_step
+
+        arch = get_arch(arch_id)
+        cfg = train_step.TrainConfig(sketch=HLLConfig(p=TRAIN_SKETCH_P, hash_bits=64), grad_accum=accum)
+        state = train_step.init_train_state(torch.Generator(device=device).manual_seed(seed), arch, cfg, device)
+        data = batch_at_step(DataConfig(arch.vocab_size, batch, seq), 0, device)
+        return lambda: train_step.train_step(state, data, arch, cfg)
+
     def serve_steps(arch_id: str, seed: int) -> tuple:
         arch = get_arch(arch_id)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -2820,6 +3292,13 @@ def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROW
                 if wanted(name):
                     result[name] = _profile_step(name, step, steps)
             del step  # the last reference to the model
+            gc.collect()
+            torch.cuda.empty_cache()
+    for name, args in train_steps.items():
+        if wanted(name):
+            step = train_step_of(*args)
+            result[name] = _profile_step(name, step, steps)
+            del step  # the last reference to the state
             gc.collect()
             torch.cuda.empty_cache()
     return result
@@ -2941,7 +3420,8 @@ def main() -> int:
     board = _timed(phase_board, device)
     launches = launch_counts()
     print(f"[main path] sketch paths' launches {launches}")
-    missing = [name for name, count in launches.items() if count == 0 and name not in SERVE_KERNELS]
+    missing = [name for name, count in launches.items()
+               if count == 0 and name not in SERVE_KERNELS + TRAIN_ONLY_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the sketch paths: {missing}")
 
@@ -2968,6 +3448,8 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the placement path: {missing}")
     attn = _timed(phase_attn_serve, device)  # zeroes and reads the counts around each launcher run
     family = _timed(phase_family_serve, device)  # likewise
+    train = _timed(phase_train, device)  # zeroes and reads the counts around each launcher run
+    launches.update({name: train["runs"][SERVE_ARCH]["launches"][name] for name in TRAIN_ONLY_KERNELS})
 
     timing = _timed(phase_timing, device)
     _timed(phase_profile, device)
@@ -3003,6 +3485,10 @@ def main() -> int:
               f"bytes" + (f"; prefill dropped {run['dropped_choices']} (token, choice) pairs over "
                           f"{run['prefill_route_calls']} layers at capacity {run['capacity']}"
                           if "dropped_choices" in run else ""))
+    for arch_id, run in train["runs"].items():
+        print(f"[timing] train {arch_id} full width, {run['global_batch']} x {run['seq_len']} a step "
+              f"(grad_accum {run['grad_accum']}): {run['tokens_per_s']:.6g} tokens/s, peak device memory "
+              f"{run['max_memory_allocated']} bytes, tap share {run['tap_share']:.4g}, loss {run['loss']}")
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

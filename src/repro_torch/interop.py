@@ -23,8 +23,13 @@ mixers (``wq``/``wk``/``wv``/``wo`` in the reference's GQA head grouping,
 ``q_norm``/``k_norm`` with qk-norm; a tied head is the embedding), the
 RG-LRU mixers (``w_x``, ``w_gate``, ``conv_w``, ``conv_b``, ``w_a``,
 ``w_i``, ``lam``, ``w_out``), and the SwiGLU or MoE (``router``, ``gate``,
-``up``, ``down``) channel mixes.  The decode cache crosses in the
-reference's layout too (``cache_from_reference``): float32 entries (the
+``up``, ``down``) channel mixes.  A training state
+(``repro_torch.train.step``) crosses as the reference's: the weights,
+AdamW's ``mu``, ``nu`` (and ``ef``) in the same tree, the int32 ``count``
+and ``step`` and the uint8 sketch registers (``train_state_to_reference``,
+``train_state_from_reference``; ``train_state_leaves`` lists its leaves in
+the reference's flatten order, which the checkpoints use).  The decode
+cache crosses in the reference's layout too (``cache_from_reference``): float32 entries (the
 RWKV and RG-LRU states) as float32, bf16 entries (the RWKV token shifts,
 the RG-LRU conv windows, the K/V rings, the int8 cache's scales) as
 float32 (exact) or as their uint16 bits, since numpy
@@ -236,59 +241,141 @@ def _float32_leaf(value, shape: tuple, where: str) -> np.ndarray:
     return arr
 
 
-def model_from_reference(params: Dict[str, object], arch: ArchConfig, device=None) -> transformer.Model:
-    """The port's model holding the reference's parameter tree, bit for bit."""
+def _named_from_tree(tree: Dict[str, object], arch: ArchConfig, device) -> Dict[str, torch.Tensor]:
+    """A reference parameter-shaped tree (the weights, or AdamW's ``mu``,
+    ``nu`` or ``ef``) as the port's tensors keyed by the model's parameter
+    names, each layer's slice of its stage's stacked leaf, bit for bit."""
     shapes = transformer.param_shapes(arch)
-    device = hll.resolve_device(device)
 
     def tensor(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
 
-    def leaf(tree, shape_tree, name, where):
-        return _float32_leaf(tree[name], shape_tree[name], f"{where}/{name}")
+    def leaf(node, shape_tree, name, where):
+        return _float32_leaf(node[name], shape_tree[name], f"{where}/{name}")
 
-    layers = []
-    for si, rep, j, kind in transformer.sublayers(arch):
+    top = ("embed", "final_norm") + (() if arch.tie_embeddings else ("lm_head",))
+    named = {name: tensor(leaf(tree, shapes, name, "")) for name in top}
+    for i, (si, rep, j, _) in enumerate(transformer.sublayers(arch)):
         where = f"stage{si}/sub{j}"
-        sub, sub_shapes = params[f"stage{si}"][f"sub{j}"], shapes[f"stage{si}"][f"sub{j}"]
-        parts = {
-            part: {name: tensor(leaf(sub[part], sub_shapes[part], name, f"{where}/{part}")[rep])
-                   for name in sub_shapes[part]}
-            for part in ("mixer", "channel")
-        }
-        layers.append(transformer.Block(
-            kind,
-            tensor(leaf(sub, sub_shapes, "norm1", where)[rep]),
-            tensor(leaf(sub, sub_shapes, "norm2", where)[rep]),
-            *transformer.make_parts(kind, arch, parts["mixer"], parts["channel"]),
-        ))
-    lm_head = None if arch.tie_embeddings else tensor(leaf(params, shapes, "lm_head", ""))
-    return transformer.Model(tensor(leaf(params, shapes, "embed", "")),
-                             tensor(leaf(params, shapes, "final_norm", "")), layers, lm_head)
+        sub, sub_shapes = tree[f"stage{si}"][f"sub{j}"], shapes[f"stage{si}"][f"sub{j}"]
+        for name in ("norm1", "norm2"):
+            named[f"layers.{i}.{name}"] = tensor(leaf(sub, sub_shapes, name, where)[rep])
+        for part in ("mixer", "channel"):
+            for name in sub_shapes[part]:
+                named[f"layers.{i}.{part}.{name}"] = tensor(leaf(sub[part], sub_shapes[part], name,
+                                                                 f"{where}/{part}")[rep])
+    return named
+
+
+def model_from_reference(params: Dict[str, object], arch: ArchConfig, device=None) -> transformer.Model:
+    """The port's model holding the reference's parameter tree, bit for bit."""
+    named = _named_from_tree(params, arch, hll.resolve_device(device))
+    shapes = transformer.param_shapes(arch)
+    layers = []
+    for i, (si, _, j, kind) in enumerate(transformer.sublayers(arch)):
+        sub_shapes = shapes[f"stage{si}"][f"sub{j}"]
+        parts = {part: {name: named[f"layers.{i}.{part}.{name}"] for name in sub_shapes[part]}
+                 for part in ("mixer", "channel")}
+        layers.append(transformer.Block(kind, named[f"layers.{i}.norm1"], named[f"layers.{i}.norm2"],
+                                        *transformer.make_parts(kind, arch, parts["mixer"], parts["channel"])))
+    return transformer.Model(arch, named["embed"], named["final_norm"], layers, named.get("lm_head"))
+
+
+def _param_leaves(named: Dict[str, torch.Tensor], arch: ArchConfig) -> list:
+    """(key path, tensors, stacked) of each leaf of the reference's
+    parameter-shaped tree over the port's named tensors: a top-level leaf
+    holds one tensor, a stage's leaf the tensors of its layers, stacked."""
+    leaves = [((name,), [named[name]], False) for name in ("embed", "final_norm", "lm_head") if name in named]
+    leaves += [(path, [named[name] for name in names], True)
+               for path, names in transformer.stage_stacks(arch, named).items()]
+    return leaves
 
 
 def model_to_reference(model: transformer.Model, arch: ArchConfig) -> Dict[str, object]:
     """The reference's parameter tree (float32 numpy arrays) of a port model."""
-    def array(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy().astype(np.float32)
+    return _tree(_param_leaves(dict(model.named_parameters()), arch))
 
-    out: Dict[str, object] = {"embed": array(model.embed), "final_norm": array(model.final_norm)}
-    if not arch.tie_embeddings:
-        out["lm_head"] = array(model.lm_head)
-    shapes = transformer.param_shapes(arch)
-    blocks = {}
-    for (si, rep, j, _), block in zip(transformer.sublayers(arch), model.layers):
-        blocks.setdefault((si, j), []).append(block)
-    for (si, j), stack in blocks.items():
-        sub_shapes = shapes[f"stage{si}"][f"sub{j}"]
-        out.setdefault(f"stage{si}", {})[f"sub{j}"] = {
-            "norm1": np.stack([array(b.norm1) for b in stack]),
-            "norm2": np.stack([array(b.norm2) for b in stack]),
-            **{part: {name: np.stack([array(getattr(b, part)[name]) for b in stack])
-                      for name in sub_shapes[part]}
-               for part in ("mixer", "channel")},
-        }
+
+def leaf_array(tensors, stacked: bool) -> np.ndarray:
+    """The host array of one reference leaf -- its tensor, or its layers'
+    stacked -- as a copy: later in-place updates of the tensors (a CPU
+    tensor's ``numpy()`` is a view of it) leave it as it was."""
+    if stacked:
+        return np.stack([t.detach().cpu().numpy() for t in tensors])
+    return tensors[0].detach().to("cpu", copy=True).numpy()
+
+
+def _tree(leaves) -> Dict[str, object]:
+    """Nested dicts of host arrays from (key path, tensors, stacked) leaves."""
+    out: Dict[str, object] = {}
+    for path, tensors, stacked in leaves:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf_array(tensors, stacked)
     return out
+
+
+# ----------------------------------------------------------------------------
+# the training state
+# ----------------------------------------------------------------------------
+
+
+def train_state_leaves(state: Dict[str, object]) -> list:
+    """Every leaf of the reference's training-state tree over a port state
+    (``repro_torch.train.step``), in the reference's flatten order (keys
+    sorted at every level): (key path, the port tensors it holds, whether
+    they stack over a stage's layers).  ``opt.ef = None`` is no leaf."""
+    model = state["params"]
+    arch = model.arch
+    opt = state["opt"]
+    leaves = [(("opt", "count"), [opt["count"]], False), (("sketch",), [state["sketch"]], False),
+              (("step",), [state["step"]], False)]
+    trees = {"params": dict(model.named_parameters()), "mu": opt["mu"], "nu": opt["nu"], "ef": opt["ef"]}
+    for name, named in trees.items():
+        if named is not None:
+            root = ("params",) if name == "params" else ("opt", name)
+            leaves += [(root + path, tensors, stacked) for path, tensors, stacked in _param_leaves(named, arch)]
+    return sorted(leaves, key=lambda leaf: leaf[0])
+
+
+def train_state_to_reference(state: Dict[str, object]) -> Dict[str, object]:
+    """The reference's training state (``repro.train.step``) as numpy:
+    ``params``, ``opt`` (``mu``, ``nu``, int32 ``count``, ``ef`` or None),
+    int32 ``step`` and uint8 ``sketch`` registers."""
+    out = _tree(train_state_leaves(state))
+    out["opt"].setdefault("ef", None)
+    return out
+
+
+def train_state_from_reference(tree: Dict[str, object], arch: ArchConfig, device=None) -> Dict[str, object]:
+    """A port training state holding the reference's (numpy arrays), bit for
+    bit; its parameters are trainable."""
+    device = hll.resolve_device(device)
+    model = model_from_reference(tree["params"], arch, device)
+    model.requires_grad_(True)
+    opt = tree["opt"]
+
+    def scalar_int32(value, where: str) -> torch.Tensor:
+        arr = np.asarray(value)
+        if arr.shape != () or arr.dtype != np.int32:
+            raise TypeError(f"{where}: expected an int32 scalar, got {arr.dtype} {arr.shape}")
+        return torch.from_numpy(np.array(arr)).to(device)
+
+    sketch = np.asarray(tree["sketch"])
+    if sketch.dtype != np.uint8 or sketch.ndim != 1:
+        raise TypeError(f"sketch: expected (m,) uint8 registers, got {sketch.dtype} {sketch.shape}")
+    return {
+        "params": model,
+        "opt": {
+            "mu": _named_from_tree(opt["mu"], arch, device),
+            "nu": _named_from_tree(opt["nu"], arch, device),
+            "count": scalar_int32(opt["count"], "opt/count"),
+            "ef": None if opt.get("ef") is None else _named_from_tree(opt["ef"], arch, device),
+        },
+        "step": scalar_int32(tree["step"], "step"),
+        "sketch": torch.from_numpy(np.array(sketch)).to(device),
+    }
 
 
 def _bf16_from_reference(value, where: str) -> torch.Tensor:

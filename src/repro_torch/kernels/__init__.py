@@ -12,6 +12,8 @@ One module per TPU kernel of the reference (``repro/kernels``):
   cm_scatter.cm_scatter_add         <- cm_scatter.py::cm_scatter_add
   cm_scatter.cm_window_fold_sum     <- cm_scatter.py::cm_window_fold_sum
   rwkv_intra.rwkv_intra             <- rwkv_intra.py::rwkv_intra
+  rwkv_intra.rwkv_intra_bwd         <- jax.grad of the reference's inline
+                                       chunk math (no Pallas backward)
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises.  Each wrapper counts its launches in a plain
@@ -37,6 +39,7 @@ KERNELS = {
     "cm_scatter_add": ("cm_scatter", "cm_scatter_add"),
     "cm_window_fold_sum": ("cm_scatter", "cm_window_fold_sum"),
     "rwkv_intra": ("rwkv_intra", "rwkv_intra"),
+    "rwkv_intra_bwd": ("rwkv_intra", "rwkv_intra_bwd"),
 }
 
 

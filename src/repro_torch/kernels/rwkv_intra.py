@@ -1,4 +1,4 @@
-"""rwkv_intra: RWKV6's intra-chunk quadratic form, float32.
+"""rwkv_intra: RWKV6's intra-chunk quadratic form, float32, and its gradient.
 
 Replaces the TPU kernel ``repro/kernels/rwkv_intra.py::rwkv_intra``
 (``_intra_kernel``), which computes, for each of G = B * NC * H cells (one
@@ -31,6 +31,12 @@ at 3.35 TB/s, against 0.061 ms for its ~4.1 GFLOP of float32 at
 C = 64, or the whole prompt when it is shorter; N is the head width, 64
 at full size and 32 in the reduced config); a ragged last sub-chunk is
 masked.
+
+``rwkv_intra_bwd`` is the gradient (``csrc/rwkv_intra_bwd.cu``, one block
+per cell with the pairwise exponent; its formulas and bound are in the
+source).  It has no Pallas counterpart: the reference differentiates its
+inline chunk math with ``jax.grad``.  ``models/rwkv6.py`` pairs the two in
+a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -63,21 +69,36 @@ def _check(r, k, v, lex, lcum, u) -> tuple:
     return g, c, n
 
 
+def _plain_dtype(*tensors) -> torch.dtype:
+    """float32, or float64 where an input is float64 (the tests' oracle)."""
+    return torch.float64 if any(t.dtype == torch.float64 for t in tensors) else torch.float32
+
+
+def _plain_block(rf, kf, vf, lexf, lf, uf) -> torch.Tensor:
+    """``rwkv_intra_ref``'s math on one block of cells, in the inputs' dtype.
+
+    The pairs s >= t are masked in the exponent (exp(-inf) = 0), where the
+    reference masks the product: the values are the same, but above the
+    diagonal Lex[t] - L[s] > 0 and, under strong decay, its exp overflows,
+    so masking the product leaves inf * 0 = NaN in the gradient (the
+    reference's ``jax.grad`` of its chunk math has that trap; the kernels
+    take no exp there)."""
+    c = rf.shape[1]
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=rf.device), diagonal=-1)[None, :, :, None]
+    pair = torch.where(mask, lexf[:, :, None, :] - lf[:, None, :, :], -torch.inf)  # (g, C, C, N)
+    a = torch.sum(rf[:, :, None] * kf[:, None, :] * torch.exp(pair), dim=-1)
+    diag = torch.einsum("gtn,gn,gtn->gt", rf, uf, kf)
+    return torch.einsum("gts,gsn->gtn", a, vf) + diag[..., None] * vf
+
+
 def rwkv_intra_plain(r, k, v, lex, lcum, u) -> torch.Tensor:
-    """The plain PyTorch version: ``rwkv_intra_ref``'s math, in blocks of cells."""
+    """The plain PyTorch version: ``rwkv_intra_ref``'s math, in blocks of
+    cells, in float32 (float64 for float64 inputs)."""
     g, c, n = _check(r, k, v, lex, lcum, u)
-    rf, kf, vf, lexf, lf, uf = (t.float() for t in (r, k, v, lex, lcum, u))
-    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), diagonal=-1)[None, :, :, None]
-    out = []
-    for lo in range(0, g, PLAIN_BLOCK_CELLS):
-        sl = slice(lo, lo + PLAIN_BLOCK_CELLS)
-        pair = lexf[sl, :, None, :] - lf[sl, None, :, :]  # (g, C, C, N)
-        a = torch.sum(
-            torch.where(mask, rf[sl, :, None] * kf[sl, None, :] * torch.exp(pair), 0.0), dim=-1
-        )
-        diag = torch.einsum("gtn,gn,gtn->gt", rf[sl], uf[sl], kf[sl])
-        out.append(torch.einsum("gts,gsn->gtn", a, vf[sl]) + diag[..., None] * vf[sl])
-    return torch.cat(out) if out else torch.zeros((0, c, n), dtype=torch.float32, device=r.device)
+    dt = _plain_dtype(r, k, v, lex, lcum, u)
+    full = [t.to(dt) for t in (r, k, v, lex, lcum, u)]
+    out = [_plain_block(*(t[lo : lo + PLAIN_BLOCK_CELLS] for t in full)) for lo in range(0, g, PLAIN_BLOCK_CELLS)]
+    return torch.cat(out) if out else torch.zeros((0, c, n), dtype=dt, device=r.device)
 
 
 def rwkv_intra(r, k, v, lex, lcum, u) -> torch.Tensor:
@@ -106,3 +127,67 @@ def rwkv_intra(r, k, v, lex, lcum, u) -> torch.Tensor:
 
 
 rwkv_intra.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# the gradient
+# ----------------------------------------------------------------------------
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def rwkv_intra_bwd_plain(r, k, v, lex, lcum, u, dy) -> tuple:
+    """The plain PyTorch version of the gradient: autograd of
+    ``rwkv_intra_plain``'s math, recomputed block by block over
+    PLAIN_BLOCK_CELLS cells so that its transient stays bounded.  Returns
+    (dr, dk, dv, dlex, dlcum, du), du per cell (G, N), in float32 (float64
+    for float64 inputs)."""
+    g, c, n = _check(r, k, v, lex, lcum, u)
+    if dy.shape != r.shape:
+        raise ValueError(f"dy must be {tuple(r.shape)} like r, got {tuple(dy.shape)}")
+    dt = _plain_dtype(r, k, v, lex, lcum, u, dy)
+    full = [t.detach().to(dt) for t in (r, k, v, lex, lcum, u)]
+    dyf = dy.detach().to(dt)
+    grads = [[] for _ in full]
+    with torch.enable_grad():
+        for lo in range(0, g, PLAIN_BLOCK_CELLS):
+            block = [t[lo : lo + PLAIN_BLOCK_CELLS].clone().requires_grad_(True) for t in full]
+            y = _plain_block(*block)
+            for acc, grad in zip(grads, torch.autograd.grad(y, block, dyf[lo : lo + PLAIN_BLOCK_CELLS])):
+                acc.append(grad)
+    if g == 0:
+        return tuple(torch.zeros_like(t) for t in full)
+    return tuple(torch.cat(acc) for acc in grads)
+
+
+def rwkv_intra_bwd(r, k, v, lex, lcum, u, dy) -> tuple:
+    """(dr, dk, dv, dlex, dlcum, du) float32 of ``rwkv_intra``'s inputs, given
+    the output's gradient dy (G, C, N); du is per cell, (G, N): the caller
+    sums it where its bonus is shared.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (``csrc/rwkv_intra_bwd.cu``).
+    """
+    tensors = (r, k, v, lex, lcum, u, dy)
+    if all(t.device.type == "cpu" for t in tensors):
+        return rwkv_intra_bwd_plain(*tensors)
+    g, c, n = _check(*tensors[:6])
+    if dy.shape != r.shape:
+        raise ValueError(f"dy must be {tuple(r.shape)} like r, got {tuple(dy.shape)}")
+    device = _build.require_cuda(*tensors)
+    if not (1 <= c <= MAX_C and 1 <= n <= MAX_N):
+        raise ValueError(f"the kernel takes 1 <= C <= {MAX_C} and 1 <= N <= {MAX_N}, got C={c}, N={n}")
+    ins = [t.to(torch.float32).contiguous() for t in tensors]
+    outs = [torch.empty((g, c, n), dtype=torch.float32, device=device) for _ in range(5)]
+    outs.append(torch.empty((g, n), dtype=torch.float32, device=device))
+    if g == 0:
+        return tuple(outs)
+    fn = _build.function("rwkv_intra_bwd", "rwkv_intra_bwd_launch", _BWD_ARGTYPES)
+    with torch.cuda.device(device):
+        err = fn(*(t.data_ptr() for t in ins + outs), g, c, n, _build.stream(device))
+    _build.check("rwkv_intra_bwd", err, "rwkv_intra_bwd")
+    rwkv_intra_bwd.launches += 1
+    return tuple(outs)
+
+
+rwkv_intra_bwd.launches = 0

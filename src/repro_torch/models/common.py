@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sketch.hll import resolve_device
+
 ACT_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
 
@@ -80,7 +82,9 @@ def head_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> t
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies for standard RoPE; (head_dim/2,) float32."""
+    """Inverse frequencies for standard RoPE; (head_dim/2,) float32 on ``device``
+    (the card by default)."""
+    device = resolve_device(device)
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / scalar(head_dim, device)
     return 1.0 / torch.pow(scalar(theta, device), exponents)
 

@@ -16,7 +16,10 @@ and each call holds one transient bf16 copy of the weight it multiplies by.
 chunked (GLA-style) form, whose intra-chunk term goes through the
 ``rwkv_intra`` kernel in one launch over every chunk and head of the layer,
 and whose inter-chunk term and state update stay two ``einsum``s in a loop
-over chunks, as the reference left them to XLA.
+over chunks, as the reference left them to XLA.  The kernel's gradient is
+the ``rwkv_intra_bwd`` kernel, paired with it in ``IntraChunk``, a
+``torch.autograd.Function``; the reference differentiates its inline chunk
+math with ``jax.grad`` instead.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.rwkv_intra import rwkv_intra
+from repro_torch.kernels.rwkv_intra import rwkv_intra, rwkv_intra_bwd
 from repro_torch.models import common
 
 LORA_RANK = 32
@@ -182,6 +185,23 @@ def time_mix(params, x: torch.Tensor, arch: ArchConfig, state: torch.Tensor = No
     return _output(params, y, g, x, arch), state
 
 
+class IntraChunk(torch.autograd.Function):
+    """The intra-chunk term with its gradient: forward ``rwkv_intra``, backward
+    ``rwkv_intra_bwd`` -- each the kernel on CUDA tensors and the plain
+    version on CPU tensors, looked up in this module when called.  The bonus
+    ``u`` enters expanded to one row per cell; autograd sums its per-cell
+    gradient back over the expansion."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lex, lcum, u):
+        ctx.save_for_backward(r, k, v, lex, lcum, u)
+        return rwkv_intra(r, k, v, lex, lcum, u)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return rwkv_intra_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
 def _to_grid(t: torch.Tensor) -> torch.Tensor:
     """(B, NC, C, H, N) -> (B * NC * H, C, N), the kernel's cells."""
     b, nc, c, h, n = t.shape
@@ -226,7 +246,7 @@ def time_mix_chunked(params, x: torch.Tensor, arch: ArchConfig, state: torch.Ten
     Lend = L[:, :, -1:]  # (B, NC, 1, H, N)
 
     ug = u[None, None].expand(b, nc, h, n).reshape(b * nc * h, n)
-    y_intra = rwkv_intra(_to_grid(rc), _to_grid(kc), _to_grid(vc), _to_grid(Lex), _to_grid(L), ug)
+    y_intra = IntraChunk.apply(_to_grid(rc), _to_grid(kc), _to_grid(vc), _to_grid(Lex), _to_grid(L), ug)
     y_intra = y_intra.reshape(b, nc, h, c, n).permute(0, 1, 3, 2, 4)  # (B, NC, C, H, N)
 
     r_in = rc * torch.exp(Lex)  # weights against S_0

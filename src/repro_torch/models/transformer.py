@@ -11,8 +11,15 @@ Layers are grouped into *stages* -- (pattern, repeats) pairs -- as in the
 reference; hybrids repeat whole patterns and leftover layers form a
 trailing mini-stage.  The reference scans each stage over stacked
 parameters, the port keeps one ``Block`` per sublayer in a flat layer
-list, in stage order, and runs them in a Python loop.  ``loss_fn`` waits
-for the training slice (ROADMAP A.12.3).
+list, in stage order, and runs them in a Python loop.
+
+Training: ``loss_fn`` is the reference's next-token loss.  The parameters
+are registered frozen (``requires_grad=False``) for serving, which runs
+under ``torch.inference_mode()``; ``train.step.init_train_state`` makes
+them trainable.  With a trainable model and grad mode on, ``forward``
+recomputes each stage's layer body in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), the boundary at which the
+reference checkpoints its scanned body (``jax.checkpoint(body)``).
 
 Modality frontends (audio frames / vision patches) are stubs, as in the
 reference: ``frontend_embeds`` enter as precomputed (B, stub_len, d)
@@ -25,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, common, moe, rglru, rwkv6
@@ -58,6 +66,22 @@ def sublayers(arch: ArchConfig) -> List[Tuple[int, int, int, str]]:
         for rep in range(repeats)
         for j, kind in enumerate(pattern)
     ]
+
+
+def stage_stacks(arch: ArchConfig, names) -> Dict[Tuple[str, ...], List[str]]:
+    """{key path of a leaf the reference stacks over a stage's layers (for
+    example ``("stage0", "sub0", "mixer", "wq")``): the names among ``names``
+    (``layers.<i>.<part>.<name>``) of the port's per-layer tensors it
+    stacks, in layer order}."""
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for i, (si, _, j, _) in enumerate(sublayers(arch)):
+        groups.setdefault((si, j), []).append(i)
+    stacks = {}
+    for (si, j), layers in groups.items():
+        prefix = f"layers.{layers[0]}."
+        for key in (name[len(prefix):] for name in names if name.startswith(prefix)):
+            stacks[(f"stage{si}", f"sub{j}", *key.split("."))] = [f"layers.{i}.{key}" for i in layers]
+    return stacks
 
 
 def _sublayer_window(kind: str, arch: ArchConfig) -> Optional[int]:
@@ -117,11 +141,13 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """Embedding, the layer list (stage order), final norm and LM head."""
+    """Embedding, the layer list (stage order), final norm and LM head, and
+    the ``arch`` they were built for (its stages group the layers)."""
 
-    def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor, layers: List[Block],
+    def __init__(self, arch: ArchConfig, embed: torch.Tensor, final_norm: torch.Tensor, layers: List[Block],
                  lm_head: Optional[torch.Tensor] = None):
         super().__init__()
+        self.arch = arch
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.layers = nn.ModuleList(layers)
@@ -161,7 +187,7 @@ def init_params(arch: ArchConfig, generator: torch.Generator, device=None) -> Mo
         mixer = mixer_part[1](arch, generator, device)
         channel = channel_part[1](arch, generator, device)
         layers.append(Block(kind, ones, ones.clone(), *make_parts(kind, arch, mixer, channel)))
-    return Model(embed, torch.ones((d,), dtype=common.PARAM_DTYPE, device=device), layers, lm_head)
+    return Model(arch, embed, torch.ones((d,), dtype=common.PARAM_DTYPE, device=device), layers, lm_head)
 
 
 # ----------------------------------------------------------------------------
@@ -222,7 +248,8 @@ def embed_tokens(model: Model, batch, arch: ArchConfig) -> torch.Tensor:
 
 
 def default_positions(arch: ArchConfig, batch_size: int, seq: int, device=None) -> torch.Tensor:
-    pos = torch.arange(seq, dtype=torch.int32, device=device).expand(batch_size, seq)
+    """(B, S) int32 positions, (3, B, S) for M-RoPE, on ``device`` (the card by default)."""
+    pos = torch.arange(seq, dtype=torch.int32, device=resolve_device(device)).expand(batch_size, seq)
     if arch.mrope:
         return pos.expand(3, batch_size, seq)
     return pos
@@ -230,6 +257,23 @@ def default_positions(arch: ArchConfig, batch_size: int, seq: int, device=None) 
 
 def _head(model: Model, arch: ArchConfig, dtype: torch.dtype) -> torch.Tensor:
     return (model.embed.T if arch.tie_embeddings else model.lm_head).to(dtype)
+
+
+def _stage_body(pattern, blocks, x, total_aux, positions, arch: ArchConfig, collect_state: bool):
+    """One repeat of a stage: its pattern's sublayers in order.  Returns (x,
+    the running aux loss, {sub<j>: state})."""
+    states = {}
+    for j, (kind, block) in enumerate(zip(pattern, blocks)):
+        x, aux_j, st = _apply_sublayer(kind, block, x, positions, arch, collect_state)
+        total_aux = total_aux + aux_j
+        states[f"sub{j}"] = st
+    return x, total_aux, states
+
+
+def _recomputes(model: Model, collect_state: bool) -> bool:
+    """Whether ``forward`` checkpoints its stage bodies: when it builds a
+    graph for a trainable model."""
+    return torch.is_grad_enabled() and model.embed.requires_grad and not collect_state
 
 
 def forward(model: Model, batch, arch: ArchConfig, *, collect_state: bool = False):
@@ -247,16 +291,20 @@ def forward(model: Model, batch, arch: ArchConfig, *, collect_state: bool = Fals
 
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     all_states = [] if collect_state else None
+    recompute = _recomputes(model, collect_state)
     layer = iter(model.layers)
     for pattern, repeats in layer_stages(arch):
         per_layer = []
         for _ in range(repeats):
-            states = {}
-            for j, kind in enumerate(pattern):
-                x, aux_j, st = _apply_sublayer(kind, next(layer), x, positions, arch, collect_state)
-                total_aux = total_aux + aux_j
-                states[f"sub{j}"] = st
-            per_layer.append(states)
+            blocks = [next(layer) for _ in pattern]
+            if recompute:
+                x, total_aux = checkpoint(
+                    lambda xc, aux, blocks=blocks, pattern=pattern:
+                        _stage_body(pattern, blocks, xc, aux, positions, arch, False)[:2],
+                    x, total_aux, use_reentrant=False)
+            else:
+                x, total_aux, states = _stage_body(pattern, blocks, x, total_aux, positions, arch, collect_state)
+                per_layer.append(states)
         if collect_state:
             all_states.append({
                 f"sub{j}": {key: torch.stack([st[f"sub{j}"][key] for st in per_layer])
@@ -267,3 +315,21 @@ def forward(model: Model, batch, arch: ArchConfig, *, collect_state: bool = Fals
     x = common.rms_norm(x, model.final_norm, arch.norm_eps)
     logits = x @ _head(model, arch, x.dtype)
     return logits, total_aux, all_states
+
+
+# ----------------------------------------------------------------------------
+# loss
+# ----------------------------------------------------------------------------
+
+
+def loss_fn(model: Model, batch, arch: ArchConfig, aux_weight: float = 0.01):
+    """Mean next-token negative log-likelihood (float32 logits) plus
+    ``aux_weight`` times the MoE load-balance loss; returns (loss, {"nll",
+    "aux"})."""
+    logits, aux, _ = forward(model, batch, arch)
+    targets = batch["targets"]
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt_logit = torch.gather(logits, -1, targets.long()[..., None]).squeeze(-1)
+    nll = torch.mean(logz - tgt_logit)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}

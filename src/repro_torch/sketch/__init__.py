@@ -92,7 +92,7 @@ from repro_torch.sketch.plan import (  # noqa: F401
 # importing backends registers the built-in "torch"/"cuda"/"cuda_pipelined"
 # entries; it must come after .plan (registry) and .hll (primitives).
 from repro_torch.sketch import backends  # noqa: F401  (registration side effect)
-from repro_torch.sketch.dispatch import dedup_pairs, update_registers  # noqa: F401
+from repro_torch.sketch.dispatch import datapath_tap, dedup_pairs, update_registers  # noqa: F401
 from repro_torch.sketch.carrier import HyperLogLog  # noqa: F401
 from repro_torch.sketch.bank import (  # noqa: F401
     SketchBank,

@@ -1,7 +1,7 @@
 """The single aggregation entry point: update_registers(regs, items, cfg, plan).
 
-Port of ``repro/sketch/dispatch.py``: ``update_registers``, ``dedup_pairs``
-and the four placement rules (``mesh_fold``, ``row_shard_fold``,
+Port of ``repro/sketch/dispatch.py``: ``update_registers``, ``dedup_pairs``,
+``datapath_tap`` and the four placement rules (``mesh_fold``, ``row_shard_fold``,
 ``row_shard_apply``, ``cm_mesh_sum``).  The ``ExecutionPlan`` chooses the
 backend and placement, and every plan yields bit-identical registers on the
 same stream (DESIGN.md §3).
@@ -228,3 +228,14 @@ def dedup_pairs(
         obs_metrics.inc("dispatch.sparse_dedup.fallback")
         backend = get_sparse_backend("torch")
     return backend(row, bucket, rank, rows, cfg, plan)
+
+
+def datapath_tap(registers: torch.Tensor, token_ids: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
+    """Sketch-on-the-datapath inside the training step (the NIC analogue,
+    DESIGN.md §2): the step's tokens, already on the device, aggregated into
+    the registers.  The reference's tap is ``hll.update``, which its
+    docstring calls equivalent to ``update_registers`` with the
+    single-pipeline plan; the port runs ``update_registers`` under
+    ``DEFAULT_PLAN`` -- one ``hll_update_fused`` launch on the card, its
+    plain version on the CPU -- and the registers are bit-identical."""
+    return update_registers(registers, token_ids, cfg, DEFAULT_PLAN)

@@ -88,10 +88,17 @@ def limbs(values: torch.Tensor) -> torch.Tensor:
     return torch.stack([values >> 32, values & MASK32], dim=-1)
 
 
+def _device(device) -> torch.device:
+    # hll imports this module: its device rule is imported at the call
+    from repro_torch.sketch.hll import resolve_device
+
+    return resolve_device(device)
+
+
 def from_py(value: int, device=None) -> torch.Tensor:
-    """A python int < 2^64 -> (2,) int64 (hi, lo) limb pair."""
+    """A python int < 2^64 -> (2,) int64 (hi, lo) limb pair on ``device`` (the card by default)."""
     value &= MASK64
-    return torch.tensor([value >> 32, value & MASK32], dtype=torch.int64, device=device)
+    return torch.tensor([value >> 32, value & MASK32], dtype=torch.int64, device=_device(device))
 
 
 def to_py(pair) -> int:
@@ -107,7 +114,7 @@ def to_numpy(limbs: torch.Tensor) -> np.ndarray:
 
 
 def from_numpy(values, device=None) -> torch.Tensor:
-    """(...) uint64 values -> (..., 2) int64 (hi, lo) limb pairs on ``device``."""
+    """(...) uint64 values -> (..., 2) int64 (hi, lo) limb pairs on ``device`` (the card by default)."""
     values = np.asarray(values, dtype=np.uint64)
     limbs = np.stack([values >> np.uint64(32), values & np.uint64(MASK32)], axis=-1)
-    return torch.from_numpy(limbs.astype(np.int64)).to(device)
+    return torch.from_numpy(limbs.astype(np.int64)).to(_device(device))

@@ -107,7 +107,7 @@ def _batches(arch, ref_arch, tokens, seed=2):
     ref_batch, batch = {"tokens": jnp.asarray(tokens)}, {"tokens": torch.from_numpy(tokens)}
     if arch.mrope:
         ref_batch["positions"] = ref_transformer.default_positions(ref_arch, b, s)
-        batch["positions"] = transformer.default_positions(arch, b, s)
+        batch["positions"] = transformer.default_positions(arch, b, s, "cpu")
     if arch.frontend_stub_len:
         fe = np.random.default_rng(seed).normal(0, 0.02, (b, arch.frontend_stub_len, arch.d_model))
         ref_batch["frontend_embeds"] = jnp.asarray(fe, jnp.float32).astype(jnp.bfloat16)
@@ -134,7 +134,7 @@ def test_rope_and_mrope_match_reference(dtype):
                                _f32(ref_common.apply_rope(jx, jnp.asarray(pos), 10_000.0)), **tol)
     np.testing.assert_allclose(_f32(common.apply_mrope(tx, torch.from_numpy(pos3), 1e6)),
                                _f32(ref_common.apply_mrope(jx, jnp.asarray(pos3), 1e6)), **tol)
-    np.testing.assert_array_equal(common.rope_frequencies(32, 10_000.0).numpy(),
+    np.testing.assert_array_equal(common.rope_frequencies(32, 10_000.0, "cpu").numpy(),
                                   np.asarray(ref_common.rope_frequencies(32, 10_000.0)))
     # the half-split pairing: position 0 is the identity, and M-RoPE with one
     # position stream for all three sections is RoPE
@@ -172,7 +172,7 @@ def test_self_attention_matches_reference_and_the_naive_oracle(models, name, leg
     x = np.random.default_rng(4).normal(0, 1, (B, S, arch.d_model)).astype(np.float32)
     jx, tx = jnp.asarray(x).astype(ref_common.ACT_DTYPE), torch.from_numpy(x).to(common.ACT_DTYPE)
     jpos = ref_transformer.default_positions(ref_arch, B, S)
-    tpos = transformer.default_positions(arch, B, S)
+    tpos = transformer.default_positions(arch, B, S, "cpu")
     window = transformer._sublayer_window("attn", arch)
     ref_mixer = jax.tree_util.tree_map(lambda a: a[0], params["stage0"]["sub0"]["mixer"])
     mixer = model.layers[0].mixer

@@ -293,55 +293,61 @@ def _drops(expert_idx: np.ndarray, e: int, cap: int) -> int:
     return int((~_oracle_routing(expert_idx, tg, e, cap)[1]).sum())
 
 
+WITNESS_LAYERS = 3  # full-width layers of the launcher's olmoe held to the reference
+
+
 @pytest.mark.gpu
 def test_launcher_olmoe_layer0_drops_witnessed_by_the_reference(monkeypatch):
     # the serve launcher's olmoe-1b-7b prefill at full width drops many
-    # (token, choice) pairs past capacity 160.  Its layer 0 -- the launcher's
-    # weights (layer 0 is drawn before any later layer) and its 8 x 1024
-    # prompts -- is run by the port on the card and by the reference on the
-    # host with the same weights, up to the router: the router inputs and
-    # the layer-0 drops must agree, and a token may route otherwise only at a
-    # near-tie of the reference's router logits.  Printed beside them:
-    # the mean cross-token cosine of the router input and of the embeddings
-    # alone, and the drops once each group's mean logit is taken out (the
-    # part of the routing that all tokens share)
+    # (token, choice) pairs past capacity 160.  Its first WITNESS_LAYERS
+    # layers (layer 0 first: the launcher's weights are drawn layer by layer,
+    # so these are its layers) on its 8 x 1024 prompts run in the port on
+    # the card; the reference then runs each layer on the host with the same
+    # weights, from the port's input to that layer, up to the router: the
+    # router inputs and each layer's drops must agree, and a token may route
+    # otherwise only at a near-tie of the reference's router logits (a
+    # reroute's changes to the next layers' inputs stay in the port's
+    # stream, which the reference starts each layer from).  Printed beside
+    # them: the mean cross-token cosine of the router input and of the
+    # embeddings alone, and the drops once each group's mean logit is taken
+    # out (the part of the routing that all tokens share)
     dev = _card()
     argv = ["--arch", "olmoe-1b-7b", "--full-config", "--requests", "8", "--prompt-len", "1024"]
     args = serve._parser().parse_args(argv)
-    arch = dataclasses.replace(configs.get_arch("olmoe-1b-7b"), n_layers=1)
-    ref_arch = dataclasses.replace(ref_configs.get_arch("olmoe-1b-7b"), n_layers=1)
+    arch = dataclasses.replace(configs.get_arch("olmoe-1b-7b"), n_layers=WITNESS_LAYERS)
+    ref_arch = dataclasses.replace(ref_configs.get_arch("olmoe-1b-7b"), n_layers=WITNESS_LAYERS)
     e, k = arch.moe.num_experts, arch.moe.top_k
     cap = moe.capacity(1024, arch.moe)
     model = serve._model(args, arch, dev)
     prompts = serve._prompts(args, arch, dev)
 
-    seen = {}
-    route = moe.route
+    seen, inputs = [], []
+    route, apply_sublayer = moe.route, transformer._apply_sublayer
 
     def spy(params, xt, arch_, cap_):
         r = route(params, xt, arch_, cap_)
-        seen.update(xt=xt, logits=(xt @ params["router"].to(xt.dtype)).float(), r=r)
+        seen.append(dict(xt=xt.float().cpu().numpy(),
+                         logits=(xt @ params["router"].to(xt.dtype)).float().cpu().numpy(),
+                         idx=r.expert_idx.cpu().numpy(), drops=int((~r.keep).sum())))
         return r
 
+    def layer_input(kind, sub, x, *rest):
+        inputs.append(x.cpu())
+        return apply_sublayer(kind, sub, x, *rest)
+
     monkeypatch.setattr(moe, "route", spy)
+    monkeypatch.setattr(transformer, "_apply_sublayer", layer_input)
     with torch.inference_mode():
         transformer.forward(model, {"tokens": prompts}, arch)
-    port_in = seen["xt"].float().cpu().numpy()  # (8, 1024, d): one group a prompt
-    port_logits = seen["logits"].cpu().numpy()
-    port_idx = seen["r"].expert_idx.cpu().numpy()
-    port_drops = int((~seen["r"].keep).sum())
+    assert len(seen) == len(inputs) == WITNESS_LAYERS
     embed_rows = model.embed[prompts.long()].float().cpu().numpy()
 
-    # the reference on the host, up to its MoE mixer's input
+    # the reference on the host, each layer up to its MoE mixer's input
     tree = interop.model_to_reference(model, arch)
     del model
     torch.cuda.empty_cache()
-    sub = {name: jax.tree_util.tree_map(lambda a: jnp.asarray(a[0]), tree["stage0"]["sub0"][name])
-           for name in ("norm1", "norm2", "mixer")}
-    sub["channel"] = {"router": jnp.asarray(tree["stage0"]["sub0"]["channel"]["router"][0])}
     tokens = jnp.asarray(prompts.cpu().numpy())
-    x = ref_transformer.embed_tokens({"embed": jnp.asarray(tree["embed"])}, {"tokens": tokens}, ref_arch)
-    del tree
+    positions = ref_transformer.default_positions(ref_arch, *tokens.shape)
     captured = {}
 
     def mixer_input(params, h2, arch_):
@@ -349,36 +355,47 @@ def test_launcher_olmoe_layer0_drops_witnessed_by_the_reference(monkeypatch):
         return jnp.zeros_like(h2), jnp.zeros((), jnp.float32), None
 
     monkeypatch.setattr(ref_transformer.moe_lib, "moe_mixer", mixer_input)
-    ref_transformer._apply_sublayer("attn", sub, x, ref_transformer.default_positions(ref_arch, *tokens.shape),
-                                    ref_arch, False)
-    h2 = captured["h2"]  # the reference's router input, computed by its own layer code
-    ref_logits = (h2 @ sub["channel"]["router"].astype(h2.dtype)).astype(jnp.float32)  # moe_mixer's lines
-    ref_idx = np.asarray(jax.lax.top_k(jax.nn.softmax(ref_logits, axis=-1), k)[1])
-    ref_in, ref_logits = np.asarray(h2.astype(jnp.float32)), np.asarray(ref_logits)
+    rows = []
+    for layer, (port, x_in) in enumerate(zip(seen, inputs)):
+        stage = tree["stage0"]["sub0"]
+        sub = {name: jax.tree_util.tree_map(lambda a: jnp.asarray(a[layer]), stage[name])
+               for name in ("norm1", "norm2", "mixer")}
+        sub["channel"] = {"router": jnp.asarray(stage["channel"]["router"][layer])}
+        x = jnp.asarray(x_in.float().numpy()).astype(ref_common.ACT_DTYPE)  # bf16 values, exactly
+        ref_transformer._apply_sublayer("attn", sub, x, positions, ref_arch, False)
+        h2 = captured["h2"]  # the reference's router input, computed by its own layer code
+        ref_logits = (h2 @ sub["channel"]["router"].astype(h2.dtype)).astype(jnp.float32)  # moe_mixer's lines
+        ref_idx = np.asarray(jax.lax.top_k(jax.nn.softmax(ref_logits, axis=-1), k)[1])
+        ref_in, ref_logits = np.asarray(h2.astype(jnp.float32)), np.asarray(ref_logits)
+        port_in, port_logits, port_idx = port["xt"], port["logits"], port["idx"]
 
-    # a token routed otherwise (its choices or their order) must sit at a
-    # near-tie of the reference's logits, as chip_smoke.py's bf16 legs hold
-    otherwise = np.argwhere((port_idx != ref_idx).any(-1))
-    ties = [(_tie_gap(torch.tensor(ref_logits[g, t]), torch.tensor(port_idx[g, t])),
-             float(np.abs(port_logits[g, t] - ref_logits[g, t]).max())) for g, t in otherwise]
-    centred = port_logits - port_logits.mean(axis=1, keepdims=True)
-    row = {
-        "router_input_mean_abs_diff": float(np.abs(port_in - ref_in).mean()),
-        "router_input_max_abs_diff": float(np.abs(port_in - ref_in).max()),
-        "logits_max_abs_diff": float(np.abs(port_logits - ref_logits).max()),
-        "choices_equal": float((port_idx == ref_idx).mean()),
-        "tokens_routed_otherwise": len(ties), "largest_gap": max((gap for gap, _ in ties), default=0.0),
-        "choices": int(port_idx.size), "capacity": cap,
-        "drops_port": port_drops, "drops_reference": _drops(ref_idx, e, cap),
-        "router_input_cosine_port": _mean_cosine(port_in), "router_input_cosine_reference": _mean_cosine(ref_in),
-        "embedding_cosine": _mean_cosine(embed_rows),
-        "shared_logit_std": float(port_logits.mean(axis=1).std(axis=-1).mean()),
-        "token_logit_std": float(centred.std(axis=-1).mean()),
-        "drops_without_the_shared_logits": _drops(np.argsort(-centred, axis=-1, kind="stable")[..., :k], e, cap),
-    }
-    print(f"[olmoe layer-0 witness] {json.dumps(row)}")
-    assert _drops(port_idx, e, cap) == port_drops  # the port's keep is the queue rule's
-    assert row["router_input_mean_abs_diff"] <= 0.01
-    assert all(gap <= 2 * change for gap, change in ties)
-    assert abs(row["drops_port"] - row["drops_reference"]) <= 0.01 * row["choices"]
-    assert abs(row["router_input_cosine_port"] - row["router_input_cosine_reference"]) <= 0.01
+        # a token routed otherwise (its choices or their order) must sit at a
+        # near-tie of the reference's logits, as chip_smoke.py's bf16 legs hold
+        otherwise = np.argwhere((port_idx != ref_idx).any(-1))
+        ties = [(_tie_gap(torch.tensor(ref_logits[g, t]), torch.tensor(port_idx[g, t])),
+                 float(np.abs(port_logits[g, t] - ref_logits[g, t]).max())) for g, t in otherwise]
+        centred = port_logits - port_logits.mean(axis=1, keepdims=True)
+        row = {
+            "layer": layer,
+            "router_input_mean_abs_diff": float(np.abs(port_in - ref_in).mean()),
+            "router_input_max_abs_diff": float(np.abs(port_in - ref_in).max()),
+            "logits_max_abs_diff": float(np.abs(port_logits - ref_logits).max()),
+            "choices_equal": float((port_idx == ref_idx).mean()),
+            "tokens_routed_otherwise": len(ties), "largest_gap": max((gap for gap, _ in ties), default=0.0),
+            "choices": int(port_idx.size), "capacity": cap,
+            "drops_port": port["drops"], "drops_reference": _drops(ref_idx, e, cap),
+            "router_input_cosine_port": _mean_cosine(port_in), "router_input_cosine_reference": _mean_cosine(ref_in),
+            "shared_logit_std": float(port_logits.mean(axis=1).std(axis=-1).mean()),
+            "token_logit_std": float(centred.std(axis=-1).mean()),
+            "drops_without_the_shared_logits": _drops(np.argsort(-centred, axis=-1, kind="stable")[..., :k], e, cap),
+        }
+        if layer == 0:
+            row["embedding_cosine"] = _mean_cosine(embed_rows)
+        print(f"[olmoe layer-{layer} witness] {json.dumps(row)}")
+        rows.append((row, ties))
+    for row, ties in rows:
+        assert _drops(seen[row["layer"]]["idx"], e, cap) == row["drops_port"]  # the port's keep is the queue rule's
+        assert row["router_input_mean_abs_diff"] <= 0.01
+        assert all(gap <= 2 * change for gap, change in ties), row["layer"]
+        assert abs(row["drops_port"] - row["drops_reference"]) <= 0.01 * row["choices"], row["layer"]
+        assert abs(row["router_input_cosine_port"] - row["router_input_cosine_reference"]) <= 0.01

@@ -91,7 +91,8 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
     reset_launches()
     errs = chip_smoke.phase_kernels("cpu", n=1 << 10, rows=11, configs=((8, 32), (16, 64)),
                                     hybrid_rows=37, window=5, cm_cells=1 << 16,
-                                    intra_shapes=((3, 64, 8), (2, 1, 16)), intra_strong=((2, 16, 8),))
+                                    intra_shapes=((3, 64, 8), (2, 1, 16)), intra_strong=((2, 16, 8),),
+                                    intra_bwd_shapes=((3, 16, 8), (2, 1, 16)), intra_bwd_strong=((2, 16, 8),))
     assert set(errs) == set(chip_smoke.KERNEL_SOURCES) and max(errs.values()) == 0.0
     stream = chip_smoke.phase_stream("cpu", chunks=2, chunk_items=1 << 11, configs=((10, 64),), pipelines=3)
     assert stream["items"] == 1 << 12 and len(stream["configs"]) == 1
@@ -202,6 +203,51 @@ def test_chip_smoke_family_serve_phase_rehearses_on_the_cpu(tmp_path):
     assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
 
 
+def test_chip_smoke_train_phase_rehearses_on_the_cpu(tmp_path):
+    reset_launches()
+    runs = (("smollm-360m", 2, 64, 1), ("rwkv6-3b", 4, 128, 2))
+    train = chip_smoke.phase_train("cpu", runs=runs, steps=3, lr=3e-3, reduce=True, pair_batch=(2, 128),
+                                   ckpt=("smollm-360m", 2, 2, 32, 4), out_dir=tmp_path)
+    assert set(train["runs"]) == {"smollm-360m", "rwkv6-3b"}
+    for arch_id, batch, seq, accum in runs:
+        row = train["runs"][arch_id]
+        assert (row["global_batch"], row["seq_len"], row["grad_accum"], len(row["loss"])) == (batch, seq, accum, 3)
+        assert row["loss"][-1] < row["loss"][0] and row["zipf_flips_card_vs_cpu"] == 0
+        assert row["tokens_per_s"] > 0 and row["exact_distinct"] > 0
+    pair = train["pair"]
+    assert pair["kernel"]["mean_abs_grad_diff"] == 0.0  # the plain pair on both sides here
+    assert pair["control"]["mean_abs_grad_diff"] > 0.0
+    assert train["checkpoint"]["resumed_equal"] and train["checkpoint"]["leaves"] > 0
+    assert not list(tmp_path.glob("train_ckpt/*"))
+    # on the CPU the wrappers run their plain versions and never count a launch
+    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+
+
+def test_chip_smoke_zipf_flip_rule_catches_a_flip_off_a_boundary():
+    from repro_torch.data.pipeline import DataConfig, batch_at_step, zipf_exponent
+
+    cfg = DataConfig(32000, 2, 64)
+    tokens = batch_at_step(cfg, 3, "cpu")["tokens"].numpy()
+    argument = zipf_exponent(cfg, 3, "cpu")[:-1].numpy()
+    assert chip_smoke.zipf_flips(tokens, tokens, argument, 32000) == 0
+    # a token one off at its own integer boundary counts; elsewhere, or by
+    # more than one, it fails
+    x = np.exp(argument.astype(np.float64))
+    at_edge = int(np.argmin(np.abs(x - np.rint(x)) / np.spacing(x.astype(np.float32))))
+    moved = tokens.copy().reshape(-1)
+    moved[at_edge] += 1 if np.rint(x[at_edge]) > x[at_edge] else -1
+    if np.abs(x[at_edge] - np.rint(x[at_edge])) <= 2 * np.spacing(np.float32(x[at_edge])):
+        assert chip_smoke.zipf_flips(moved, tokens, argument, 32000) == 1
+    far = int(np.argmax(np.abs(x - np.rint(x))))
+    bad = tokens.copy().reshape(-1)
+    bad[far] += 1
+    with pytest.raises(AssertionError, match="integer boundary"):
+        chip_smoke.zipf_flips(bad, tokens, argument, 32000)
+    bad[far] += 1
+    with pytest.raises(AssertionError, match="more than one"):
+        chip_smoke.zipf_flips(bad, tokens, argument, 32000)
+
+
 def test_chip_smoke_float64_routing_catches_a_wrong_tie_or_drop():
     # a zero router: every probability ties, so experts 0..k-1 in order, and
     # the queues past capacity drop; the higher index first, or a drop
@@ -265,6 +311,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.launch.mesh, repro_torch.models.attention, repro_torch.serve.kvquant\n"
         "import repro_torch.serve.scheduler, repro_torch.sketch.dispatch\n"
         "import repro_torch.models.moe, repro_torch.models.rglru\n"
+        "import repro_torch.data.pipeline, repro_torch.optim.adamw, repro_torch.train.step\n"
+        "import repro_torch.train.loop, repro_torch.train.watchdog, repro_torch.checkpoint.ckpt\n"
+        "import repro_torch.launch.train\n"
         "repro_torch.kernels.wrappers()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
