@@ -52,12 +52,15 @@ raises (exit code 1) when it fails:
            (16, 64, 32), (5, 17, 64) and (3, 33, 30), and under strong
            decay (decay scale 50) at (5120, 64, 64), (64, 64, 64) and
            (2, 32, 32), within rtol 1e-5 and atol 1e-4, every output
-           finite; rwkv_intra_bwd at the training grid (1280, 64, 64), at
-           (3, 1, 64), (7, 40, 64), (5, 17, 30) and (16, 64, 32), and
-           under strong decay at (1280, 64, 64) and (2, 32, 32): every
+           finite; rwkv_intra_bwd at the training grid (1280, 64, 64), the
+           serve grid (5120, 64, 64), (3, 1, 64), (7, 40, 64),
+           (5, 17, 30), (16, 64, 32), C in {8, 9, 57} at N = 64 and N in
+           {1, 33} at C = 64, under strong decay (scale 50) at all of
+           those but four small ones and at (2, 32, 32), at decay scale
+           200 (the factors underflow) and with an all-zero dy: every
            gradient finite and within 1e-5 of its largest magnitude of the
            float32 plain version, both printed against the float64 plain
-           version.
+           version; its ptxas report and the blocks an SM holds.
   stream   the paper's NIC deployment (Tab. IV), lengthened: 2^26 uint32
            items in 16 chunks of 2^22 through ``update_registers`` under
            "cuda" and "cuda_pipelined" (k = 8), for (p, H) in
@@ -230,9 +233,9 @@ raises (exit code 1) when it fails:
            larger of bytes over 3.35 TB/s and float32 operations over
            67 TFLOP/s), its plain version's time and, where one PyTorch
            call computes the same function, that call's time;
-           cm_scatter_add, hll_update_fused, bank_scatter_max and
-           bucket_fold in 5 rounds (min, median, max; the record takes the
-           first, as every row); bucket_fold's floor, the time of a (1, 16)
+           cm_scatter_add, hll_update_fused, bank_scatter_max,
+           bucket_fold and rwkv_intra_bwd in 5 rounds (min, median, max;
+           the record takes the first, as every row); bucket_fold's floor, the time of a (1, 16)
            fold; beside them sparse_scatter_coo and cm_scatter_add on
            their global paths (the previous designs), and bank_scatter_max
            on both paths at each caller's shape and at banks of 16, 32 and
@@ -274,6 +277,7 @@ With no card it raises before printing any result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import contextlib
 import dataclasses
 import json
@@ -407,11 +411,16 @@ SERVE_NOISE, SERVE_NOISE_FACTOR = 2.0 ** -20, 2.0
 SERVE_TF_ATOL = 0.15
 
 # rwkv_intra_bwd against its plain version: the training grid (a micro-batch
-# of 2 sequences x 16 chunks x 40 heads), C = 1, ragged chunks, N = 30, and
-# strong decay (scale 50); each gradient within INTRA_BWD_TOL of its largest
-# magnitude
-INTRA_BWD_SHAPES = ((1280, 64, 64), (3, 1, 64), (7, 40, 64), (5, 17, 30), (16, 64, 32))
-INTRA_BWD_STRONG = ((1280, 64, 64), (2, 32, 32))
+# of 2 sequences x 16 chunks x 40 heads), C = 1, ragged chunks (one and a
+# half sub-chunks, 57 = 7 x 8 + 1), N = 1, 30 and 33, the serve grid (every
+# cell checked for races), strong decay (scale 50), decay scale 200 (the
+# two-level factors underflow) and an all-zero dy; each gradient within
+# INTRA_BWD_TOL of its largest magnitude
+INTRA_BWD_RAGGED = ((40, 8, 64), (40, 9, 64), (40, 57, 64), (40, 64, 1), (40, 64, 33), (5120, 64, 64))
+INTRA_BWD_SHAPES = ((1280, 64, 64), (3, 1, 64), (7, 40, 64), (5, 17, 30), (16, 64, 32)) + INTRA_BWD_RAGGED
+INTRA_BWD_STRONG = ((1280, 64, 64), (2, 32, 32)) + INTRA_BWD_RAGGED
+INTRA_BWD_UNDERFLOW = ((1280, 64, 64), (40, 57, 64))  # decay scale 200
+INTRA_BWD_ZERO_DY = ((1280, 64, 64),)
 INTRA_BWD_TOL = 1e-5
 KERNEL_SOURCES = {
     "hash_rank": ("src/repro_torch/kernels/csrc/hash_rank.cu", "src/repro/kernels/hash_rank.py:44"),
@@ -430,7 +439,7 @@ KERNEL_SOURCES = {
                        "src/repro/models/rwkv6.py:159 (jax.grad of time_mix_chunked's chunk math)"),
 }
 # timed in rounds, min/median/max printed
-SPREAD_KERNELS = ("cm_scatter_add", "hll_update_fused", "bank_scatter_max", "bucket_fold")
+SPREAD_KERNELS = ("cm_scatter_add", "hll_update_fused", "bank_scatter_max", "bucket_fold", "rwkv_intra_bwd")
 SPREAD_ROUNDS = 5
 PROFILE_ATTEMPTS = 3  # recordings of a profile step before its partial one is reported
 # profiled only when --profile names them: a full-width train step launches
@@ -526,6 +535,20 @@ def _intra_bwd_case(args, what: str, tol: float = INTRA_BWD_TOL) -> dict:
     return row
 
 
+def _intra_bwd_occupancy() -> str:
+    """rwkv_intra_bwd's ptxas report (registers, stack, spills of both
+    instantiations), its dynamic shared bytes a block and the blocks an SM
+    holds (the occupancy calculator's answer)."""
+    fn = _build.function("rwkv_intra_bwd", "rwkv_intra_bwd_occupancy", [ctypes.POINTER(ctypes.c_int)])
+    shared = ctypes.c_int(0)
+    blocks = fn(ctypes.byref(shared))
+    if blocks < 1:
+        raise AssertionError(f"rwkv_intra_bwd: the occupancy query returned {blocks}")
+    ptxas = "; ".join(line.split(":", 1)[-1].strip() for line in _build.build_log("rwkv_intra_bwd").splitlines()
+                      if "Used" in line or "spill" in line)
+    return f"ptxas {ptxas}; {shared.value} dynamic shared bytes a block; {blocks} blocks an SM"
+
+
 def _stream_items(n: int, rng: np.random.Generator) -> np.ndarray:
     """n uint32 items with the edge values at the front."""
     values = rng.integers(0, 2**32, n, dtype=np.uint32)
@@ -552,7 +575,7 @@ def phase_build() -> dict:
           "bank_scatter 65536 + 4 * (2 slices + 1) a tile block (67,652 at the main shape), "
           "4 * (tiles + 4 + entries a slice) a partition block (67,664 at the main shape), "
           "8 * (tiles + 1) the plan block; "
-          "rwkv_intra 72960 bytes at C = N = 64; "
+          "rwkv_intra 72960 bytes at C = N = 64; rwkv_intra_bwd 109824 bytes (any C, N); "
           "sparse_scatter 4 * (2^14 + 2^10 + 2 slices + 1) a tile block (71748 at 264 slices), "
           "4 * (tiles + 4 + triples a slice) a partition block (71520 on the bench_sparse stream); "
           "the other kernels none")
@@ -688,7 +711,8 @@ def _bank_cases(device, n: int, rows: int, rng: np.random.Generator) -> float:
 def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
                   hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, cm_cells: int = CM_CELL_CAP,
                   intra_shapes=INTRA_SHAPES, intra_strong=INTRA_STRONG, intra_bwd_shapes=INTRA_BWD_SHAPES,
-                  intra_bwd_strong=INTRA_BWD_STRONG) -> dict:
+                  intra_bwd_strong=INTRA_BWD_STRONG, intra_bwd_underflow=INTRA_BWD_UNDERFLOW,
+                  intra_bwd_zero_dy=INTRA_BWD_ZERO_DY) -> dict:
     """Every kernel against its plain version at main-path and ragged sizes."""
     rng = np.random.default_rng(SEED)
     errs = {name: 0.0 for name in KERNEL_SOURCES}
@@ -917,15 +941,23 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
         del args
     # rwkv_intra_bwd: each gradient against the float32 plain version, and
     # both against the float64 plain version
-    cases = [(shape, 1.0) for shape in intra_bwd_shapes] + [(shape, 50.0) for shape in intra_bwd_strong]
+    cases = ([(shape, 1.0, False) for shape in intra_bwd_shapes] + [(shape, 50.0, False) for shape in intra_bwd_strong]
+             + [(shape, 200.0, False) for shape in intra_bwd_underflow]
+             + [(shape, 1.0, True) for shape in intra_bwd_zero_dy])
     bwd = {}
-    for (g, c, nn), decay in cases:
-        row = _intra_bwd_case(_intra_bwd_inputs(g, c, nn, gen, device, decay),
-                              f"rwkv_intra_bwd (G, C, N) = {(g, c, nn)}, decay scale {decay}")
-        bwd[f"{(g, c, nn)} decay {decay}"] = row
+    for (g, c, nn), decay, zero_dy in cases:
+        args = _intra_bwd_inputs(g, c, nn, gen, device, decay)
+        if zero_dy:
+            args = args[:-1] + (torch.zeros_like(args[-1]),)
+        what = f"{(g, c, nn)} decay {decay}" + (", dy = 0" if zero_dy else "")
+        row = _intra_bwd_case(args, f"rwkv_intra_bwd (G, C, N) = {what}")
+        bwd[what] = row
         errs["rwkv_intra_bwd"] = max(errs["rwkv_intra_bwd"], row.pop("max_abs_err"))
+        del args
     print(f"[kernels] rwkv_intra_bwd, each gradient's max |difference| over its largest magnitude (within "
           f"{INTRA_BWD_TOL} of the plain version's): {json.dumps(bwd)}")
+    if torch.device(device).type == "cuda":
+        print(f"[kernels] rwkv_intra_bwd: {_intra_bwd_occupancy()}")
     print(f"[kernels] sketch kernels bit-identical to their plain versions, rwkv_intra within rtol "
           f"{INTRA_RTOL} atol {INTRA_ATOL}, rwkv_intra_bwd as above: max_abs_err {errs}")
     return errs

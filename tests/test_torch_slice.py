@@ -92,7 +92,8 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
     errs = chip_smoke.phase_kernels("cpu", n=1 << 10, rows=11, configs=((8, 32), (16, 64)),
                                     hybrid_rows=37, window=5, cm_cells=1 << 16,
                                     intra_shapes=((3, 64, 8), (2, 1, 16)), intra_strong=((2, 16, 8),),
-                                    intra_bwd_shapes=((3, 16, 8), (2, 1, 16)), intra_bwd_strong=((2, 16, 8),))
+                                    intra_bwd_shapes=((3, 16, 8), (2, 1, 16)), intra_bwd_strong=((2, 16, 8),),
+                                    intra_bwd_underflow=((2, 9, 8),), intra_bwd_zero_dy=((2, 16, 8),))
     assert set(errs) == set(chip_smoke.KERNEL_SOURCES) and max(errs.values()) == 0.0
     stream = chip_smoke.phase_stream("cpu", chunks=2, chunk_items=1 << 11, configs=((10, 64),), pipelines=3)
     assert stream["items"] == 1 << 12 and len(stream["configs"]) == 1

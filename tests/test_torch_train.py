@@ -487,13 +487,24 @@ def test_none_device_lands_on_the_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 16, 40, 64, 64, 1.0), (1, 1, 3, 1, 64, 1.0), (1, 2, 5, 40, 64, 1.0),
-                                   (1, 2, 3, 17, 30, 1.0), (1, 2, 4, 64, 64, 50.0), (1, 1, 2, 32, 32, 50.0)],
-                         ids=["train", "c1", "ragged-c40", "c17-n30", "strong-decay", "strong-c32"])
+@pytest.mark.parametrize("shape", [(2, 16, 40, 64, 64, 1.0, False), (1, 1, 3, 1, 64, 1.0, False),
+                                   (1, 2, 5, 40, 64, 1.0, False), (1, 2, 3, 17, 30, 1.0, False),
+                                   (1, 2, 4, 64, 64, 50.0, False), (1, 1, 2, 32, 32, 50.0, False),
+                                   (1, 2, 20, 8, 64, 1.0, False), (1, 2, 20, 9, 64, 1.0, False),
+                                   (1, 2, 20, 57, 64, 1.0, False), (1, 2, 20, 64, 1, 1.0, False),
+                                   (1, 2, 20, 64, 33, 1.0, False), (8, 16, 40, 64, 64, 1.0, False),
+                                   (2, 16, 40, 64, 64, 1.0, True), (1, 2, 20, 64, 64, 200.0, False)],
+                         ids=["train", "c1", "ragged-c40", "c17-n30", "strong-decay", "strong-c32", "c8", "c9",
+                              "c57", "n1", "n33", "serve-grid", "zero-dy", "decay-200"])
 def test_intra_bwd_kernel_matches_plain_on_card(shape):
+    # ragged sub-chunks (C = 8, 9, 57), N off 4 and 32, the serve grid (5120
+    # cells: a race shows in a few cells), dy = 0 (exact zeros) and decay
+    # scale 200, where the two-level factors underflow
     dev = _card()
-    b, nc, h, c, n, decay = shape
+    b, nc, h, c, n, decay, zero_dy = shape
     r, k, v, lex, lcum, u, dy = _intra_case(b, nc, h, c, n, decay, seed=c + n)
+    if zero_dy:
+        dy = np.zeros_like(dy)
     ug = np.tile(u[None], (b * nc, 1, 1)).reshape(-1, n)
     ins = [torch.from_numpy(x).to(dev) for x in (r, k, v, lex, lcum, ug, dy)]
     before = intra_lib.rwkv_intra_bwd.launches
