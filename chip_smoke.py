@@ -228,6 +228,33 @@ raises (exit code 1) when it fails:
            2-layer full-width smollm-360m: 4 steps straight equal to 2, a
            checkpoint and a resumed run, and a save/restore round trip,
            every leaf.
+  sharding the partition rules and the compressed all-reduce: param_specs
+           and cache_specs of the ten archs at full width (on ``meta``; the
+           decode_32k and long_500k caches) divisible on the production
+           16 x 16 mesh; no leaf over 50 M parameters of qwen2-vl-72b and
+           mixtral-8x7b replicated, each such stacked layer leaf over FSDP;
+           compressed_psum over 4 positions of the card (2^22 float32 each)
+           within 2 % of the largest |sum| + 1e-3 of the float32 sum, its
+           int8 payloads and scales equal to quantize_int8 of each
+           position, and the mean reducer likewise; one full-width
+           smollm-360m train step (4 x 1024) through make_jitted_step with a
+           (1, 1) mesh's shardings and activation hints equal to the plain
+           step, every leaf and the loss, under deterministic algorithms.
+  dryrun   ``repro_torch.launch.dryrun`` over every (arch x shape) cell of
+           the ten archs and configs.SHAPES on the 16 x 16 mesh, in
+           DRYRUN_JOBS (8) processes: no cell in error, each cell's per-position
+           peak, fits and roofline printed; then the dry-run's whole-program
+           peak of the cells the train and serve phases run at full width
+           (train: smollm-360m and TinyLlama-1.1B at 8 x 1024, RWKV6-3B at
+           4 x 1024 in 2 micro-batches; prefill: RWKV6-3B and TinyLlama-1.1B
+           at 8 x 1024) beside the card's max_memory_allocated over one step
+           of the same callable; each must be predicted to fit, as it did.
+  sketch_roofline  ``repro_torch.launch.sketch_roofline`` at 2^28 items,
+           p = 16: scatter and hash32 (backend cuda), pipelined4/8/16
+           (cuda_pipelined), each variant's median device ms over 5 rounds
+           of 10 calls, its op-analysis terms and its fraction of the
+           stream read once (0.3205 ms); registers bit-identical to the
+           "torch" backend's.
   timing   each kernel's device time (CUDA events over warm launches
            queued back to back) and host time per call, its bound (the
            larger of bytes over 3.35 TB/s and float32 operations over
@@ -264,7 +291,9 @@ just after; every kernel of PLACEMENT_KERNELS must have launched there;
 and just before and after each launcher run of the attn_serve and
 family_serve phases, where every kernel of ATTN_LAUNCH_KERNELS must have
 launched, and of the train phase, where the train path's kernels must have
-launched the counts above.  After the kernels
+launched the counts above; and just before and after the sketch_roofline
+phase's runs, where hll_update_fused and bucket_fold must have launched.
+After the kernels
 phase it checks that the count-min main
 path's shapes take the tiled cm_scatter_add, and the bank tick the tiled
 bank_scatter_max.
@@ -2653,15 +2682,45 @@ def _train_pair_check(device, arch, batch_shape) -> dict:
     return rows
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """torch.use_deterministic_algorithms(True), with cuBLAS's deterministic
+    workspace, for the block; both restored after it."""
+    import os
+
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = env or ":4096:8"  # cuBLAS's deterministic mode
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+def _same_state(a: dict, b: dict, what: str) -> int:
+    """Raise unless two training states hold the same leaves, bit for bit;
+    returns the leaves' count."""
+    from repro_torch import interop
+
+    leaves_a, leaves_b = interop.train_state_leaves(a), interop.train_state_leaves(b)
+    if [p for p, _, _ in leaves_a] != [p for p, _, _ in leaves_b]:
+        raise AssertionError(f"{what}: the states' leaves differ")
+    for (path, ta, _), (_, tb, _) in zip(leaves_a, leaves_b):
+        if not all(torch.equal(x, y) for x, y in zip(ta, tb)):
+            raise AssertionError(f"{what}: leaf {path} differs")
+    return len(leaves_a)
+
+
 def _train_ckpt_leg(device, arch, batch: int, seq: int, steps: int, out_dir: Path) -> dict:
     """Under torch.use_deterministic_algorithms(True): ``steps`` steps
     straight against half of them, a checkpoint and a resumed run -- every
     leaf equal; and a save/restore round trip into a fresh state -- every
     leaf equal."""
-    import os
     import shutil
 
-    from repro_torch import interop
     from repro_torch.checkpoint import ckpt
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.optim.adamw import OptimizerConfig
@@ -2674,38 +2733,23 @@ def _train_ckpt_leg(device, arch, batch: int, seq: int, steps: int, out_dir: Pat
     root = out_dir / "train_ckpt"
     shutil.rmtree(root, ignore_errors=True)
     quiet = lambda line: None
-
-    def same(a: dict, b: dict, what: str) -> int:
-        leaves_a, leaves_b = interop.train_state_leaves(a), interop.train_state_leaves(b)
-        if [p for p, _, _ in leaves_a] != [p for p, _, _ in leaves_b]:
-            raise AssertionError(f"{what}: the states' leaves differ")
-        for (path, ta, _), (_, tb, _) in zip(leaves_a, leaves_b):
-            if not all(torch.equal(x, y) for x, y in zip(ta, tb)):
-                raise AssertionError(f"{what}: leaf {path} differs")
-        return len(leaves_a)
-
-    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = env or ":4096:8"  # cuBLAS's deterministic mode
-    before = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
     try:
-        t0 = time.perf_counter()
-        full, _ = train_loop.train(arch, cfg, data, train_loop.LoopConfig(steps, ckpt_every=10 ** 9),
-                                   log_fn=quiet, device=device)
-        ck = str(root / "resume")
-        train_loop.train(arch, cfg, data, train_loop.LoopConfig(steps // 2, ckpt_every=steps // 2, ckpt_dir=ck),
-                         log_fn=quiet, device=device)
-        resumed, _ = train_loop.train(arch, cfg, data, train_loop.LoopConfig(steps, ckpt_every=10 ** 9, ckpt_dir=ck),
-                                      log_fn=quiet, device=device)
-        leaves = same(resumed, full, "resumed run")
-        ckpt.save(full, str(root / "round_trip"), steps, async_write=True).join()
-        template = train_loop.init_state(arch, cfg, SEED + 41, torch.device(device))
-        same(ckpt.restore(template, str(root / "round_trip"), steps), full, "round trip")
-        wall = time.perf_counter() - t0
+        with _deterministic():
+            t0 = time.perf_counter()
+            full, _ = train_loop.train(arch, cfg, data, train_loop.LoopConfig(steps, ckpt_every=10 ** 9),
+                                       log_fn=quiet, device=device)
+            ck = str(root / "resume")
+            train_loop.train(arch, cfg, data, train_loop.LoopConfig(steps // 2, ckpt_every=steps // 2, ckpt_dir=ck),
+                             log_fn=quiet, device=device)
+            resumed, _ = train_loop.train(arch, cfg, data,
+                                          train_loop.LoopConfig(steps, ckpt_every=10 ** 9, ckpt_dir=ck),
+                                          log_fn=quiet, device=device)
+            leaves = _same_state(resumed, full, "resumed run")
+            ckpt.save(full, str(root / "round_trip"), steps, async_write=True).join()
+            template = train_loop.init_state(arch, cfg, SEED + 41, torch.device(device))
+            _same_state(ckpt.restore(template, str(root / "round_trip"), steps), full, "round trip")
+            wall = time.perf_counter() - t0
     finally:
-        torch.use_deterministic_algorithms(before)
-        if env is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
         shutil.rmtree(root, ignore_errors=True)
     return {"arch": arch.name, "layers": arch.n_layers, "steps": steps, "leaves": leaves, "wall_s": wall,
             "resumed_equal": True, "round_trip_equal": True}
@@ -2898,6 +2942,239 @@ def phase_obs(device, rows: int = OBS_ROWS, p: int = OBS_P, tick_items: int = OB
     if added:
         raise AssertionError(f"enabling metrics and a trace added synchronizing calls: {added}")
     return result
+
+
+SHARDING_FSDP_ARCHS = ("qwen2-vl-72b", "mixtral-8x7b")  # the reference's test_fsdp_actually_shards_big_params
+SHARDING_FSDP_MIN = 50e6  # parameters of a leaf that must carry the FSDP axis
+SHARDING_POSITIONS = 4  # compressed_psum's positions on the one card
+SHARDING_PSUM_SIZE = 1 << 22
+SHARDING_STEP = ("smollm-360m", 4, 1024)  # arch, batch, sequence of the hinted step
+DRYRUN_JOBS = 8  # worker processes of the sweep (the card's host has 8 cores; the caller waits)
+# (arch, kind, batch, sequence, micro-batches): the cells the train and
+# serve phases run at full width
+DRYRUN_MEASURED = (("smollm-360m", "train", 8, 1024, 1), (ATTN_ARCH, "train", 8, 1024, 1),
+                   (SERVE_ARCH, "train", 4, 1024, 2), (SERVE_ARCH, "prefill", 8, 1024, 1),
+                   (ATTN_ARCH, "prefill", 8, 1024, 1))
+SKETCH_ROOFLINE_KERNELS = ("hll_update_fused", "bucket_fold")
+
+
+def _specs_checks(mesh) -> dict:
+    """``param_specs`` of the ten archs at full width and ``cache_specs`` of
+    their decode cells, on ``meta``, each checked against its leaf on the
+    production ``mesh`` (``NamedSharding.check``: the divisibility jit's
+    in_shardings demand); no large leaf of SHARDING_FSDP_ARCHS replicated,
+    and each large stacked layer leaf carrying the FSDP axis."""
+    from repro_torch import interop
+    from repro_torch.configs import ARCH_IDS, SHAPES, is_cell_supported
+    from repro_torch.sharding import specs as shardspecs
+
+    leaves = caches = 0
+    for arch_id in ARCH_IDS:
+        arch = get_arch(arch_id)
+        tree = interop.meta_tree(interop.param_leaves(transformer.init_params(arch, torch.Generator(), "meta")))
+        specs = shardspecs.param_specs(tree, arch, mesh.shape["data"], mesh.shape["model"])
+        shardspecs.check_tree(tree, shardspecs.named(specs, mesh), f"{arch_id} params")
+        leaves += len(shardspecs.tree_leaves_with_path(tree))
+        if arch_id in SHARDING_FSDP_ARCHS:
+            flat = dict(shardspecs.tree_leaves_with_path(specs))
+            # no large leaf replicated (the reference's test), and every large
+            # stacked layer leaf over FSDP (the embedding and head shard the
+            # vocabulary over 'model' instead)
+            bare = [(shardspecs.keystr(path), tuple(leaf.shape)) for path, leaf in shardspecs.tree_leaves_with_path(tree)
+                    if leaf.numel() > SHARDING_FSDP_MIN
+                    and (not shardspecs.spec_axes(flat[path])
+                         or (path[0].startswith("stage") and shardspecs.FSDP_AXIS not in shardspecs.spec_axes(flat[path])))]
+            if bare:
+                raise AssertionError(f"{arch_id}: leaves over {SHARDING_FSDP_MIN:.0f} parameters without FSDP: {bare}")
+        for shape_name in ("decode_32k", "long_500k"):
+            shape = SHAPES[shape_name]
+            if is_cell_supported(arch, shape):
+                cache = engine.init_cache(arch, shape.global_batch, shape.seq_len, device="meta")
+                cspecs = shardspecs.cache_specs(cache, arch, mesh, shape.global_batch)
+                shardspecs.check_tree(cache, shardspecs.named(cspecs, mesh), f"{arch_id} {shape_name} cache")
+                caches += 1
+    return {"param_leaves": leaves, "caches": caches}
+
+
+def _hinted_step(device, arch, batch: int, seq: int) -> dict:
+    """One train step under a (1, 1) mesh with its shardings and activation
+    hints (``make_jitted_step``'s sharding arguments) against the plain
+    step from the same state and batch, under deterministic algorithms:
+    every leaf and the loss equal, bit for bit."""
+    from repro_torch import interop
+    from repro_torch.data.pipeline import DataConfig, batch_at_step
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import ctx as shardctx
+    from repro_torch.train import step as train_step
+
+    cfg = train_step.TrainConfig(sketch=HLLConfig(p=TRAIN_SKETCH_P, hash_bits=64))
+    data = batch_at_step(DataConfig(arch.vocab_size, batch, seq), 0, device)
+    mesh = make_test_mesh((1, 1), ("data", "model"), device)
+    out = {}
+    with _deterministic():
+        plain = train_step.init_train_state(torch.Generator(device=device).manual_seed(SEED), arch, cfg, device)
+        _, plain_metrics = train_step.train_step(plain, data, arch, cfg)
+        hinted = train_step.init_train_state(torch.Generator(device=device).manual_seed(SEED), arch, cfg, device)
+        tree = interop.meta_tree(interop.train_state_leaves(hinted))
+        step = train_step.make_jitted_step(arch, cfg, mesh, dryrun.state_shardings(tree, arch, mesh),
+                                           dryrun.batch_shardings(data, arch, mesh, batch))
+        with shardctx.use_hints(shardctx.ActivationHints(batch_axes=("data",), model_axis="model")):
+            _, hinted_metrics = step(hinted, data)
+        out["leaves"] = _same_state(hinted, plain, "hinted step")
+    if not torch.equal(plain_metrics["loss"], hinted_metrics["loss"]):
+        raise AssertionError(f"hinted step's loss {float(hinted_metrics['loss'])} != {float(plain_metrics['loss'])}")
+    out["loss"] = float(plain_metrics["loss"])
+    return out
+
+
+def phase_sharding(device, step_run=SHARDING_STEP, positions: int = SHARDING_POSITIONS,
+                   psum_size: int = SHARDING_PSUM_SIZE, reduce: bool = False) -> dict:
+    """The sharding rules and the compressed all-reduce (see the module
+    docstring); ``reduce`` takes the hinted step's reduced arch, for the CPU
+    rehearsal."""
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    from repro_torch.optim import adamw, compress
+
+    out = {"specs": _specs_checks(make_production_mesh(devices=[torch.device("meta")] * 256))}
+    gen = torch.Generator(device=device).manual_seed(SEED + 51)
+    xs = [torch.randn(psum_size, generator=gen, device=device) for _ in range(positions)]
+    qs, scales = compress.compressed_gather(xs)
+    for i, x in enumerate(xs):
+        q, scale = adamw.quantize_int8(x)
+        if not (torch.equal(qs[i], q) and torch.equal(scales[i], scale)):
+            raise AssertionError(f"compressed_psum's int8 payload of position {i} differs from quantize_int8")
+    got, want = compress.compressed_psum(xs), torch.stack(xs).sum(0)
+    err = (got - want).abs().max().item()
+    bound = 0.02 * want.abs().max().item() + 1e-3  # tests/test_sharding.py's bound
+    mesh = make_test_mesh((positions,), ("data",), device)
+    mean = compress.make_compressed_grad_reducer(mesh, ("data",))({"g": xs[0]})["g"]
+    mean_err = (mean - xs[0]).abs().max().item()
+    if err > bound or mean_err > 0.02 * xs[0].abs().max().item() + 1e-3:
+        raise AssertionError(f"compressed_psum off the float32 sum: {err} (bound {bound}), mean {mean_err}")
+    out["psum"] = {"positions": positions, "size": psum_size, "max_abs_err": err, "bound": bound,
+                   "reducer_max_abs_err": mean_err}
+    arch_id, batch, seq = step_run
+    arch = get_arch(arch_id).reduced() if reduce else get_arch(arch_id)
+    out["hinted_step"] = {"arch": arch_id, "batch": batch, "seq": seq, **_hinted_step(device, arch, batch, seq)}
+    print(f"[sharding] {json.dumps(out)}")
+    return out
+
+
+def _measured_peak(device, arch, kind: str, batch: int, seq: int, accum: int) -> int:
+    """Bytes the card allocated at most over one step of the dry-run's cell
+    (``dryrun.prefill_fn``, or the train step with the dry-run's
+    ``TrainConfig``) at full width, beyond what was allocated before it."""
+    import gc
+
+    from repro_torch.launch import dryrun
+    from repro_torch.train import step as train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 52)
+    tokens = torch.randint(0, arch.vocab_size, (batch, seq + 1), generator=gen, device=device, dtype=torch.int32)
+    if kind == "train":
+        cfg = train_step.TrainConfig(grad_accum=accum)
+        state = train_step.init_train_state(gen, arch, cfg, device)
+        train_step.train_step(state, {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}, arch, cfg)
+        del state
+    else:
+        model = transformer.init_params(arch, gen, device)
+        with torch.inference_mode():
+            out = dryrun.prefill_fn(model, {"tokens": tokens[:, :-1]}, arch)
+        del model, out
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase_dryrun(device, jobs: int = DRYRUN_JOBS, measured=DRYRUN_MEASURED, capacity=None, out_dir: Path = BUILD,
+                 reduce: bool = False) -> dict:
+    """The dry-run's sweep and its peaks against the card's (see the module
+    docstring).  ``capacity`` (bytes) defaults to the card's memory;
+    ``reduce`` runs the sweep's reduced archs, and without a card no peak
+    is measured, for the CPU rehearsal."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    on_card = torch.device(device).type == "cuda"
+    capacity = dryrun.card_capacity() if capacity is None else capacity
+    cells = [(a, s) for s in SHAPES for a in ARCH_IDS]  # the long train cells first: the workers finish together
+    t0 = time.perf_counter()
+    records = dryrun.run_cells([] if reduce else cells, False, str(out_dir / "dryrun"), jobs, capacity_bytes=capacity)
+    sweep_s = time.perf_counter() - t0
+    errors = [(r["arch"], r["shape"], r["error"]) for r in records if r["status"] == "error"]
+    if errors:
+        raise AssertionError(f"dry-run cells in error: {errors}")
+    for r in records:
+        line = {"status": r["status"]}
+        if r["status"] == "ok":
+            mem = r["memory_analysis"]
+            line.update(peak_per_position=mem["peak_bytes_per_device_est"], fits_per_position=r["fits_per_position"],
+                        fits_one_card=r["fits_one_card"], dominant=r["roofline"]["dominant"],
+                        bound_s=r["roofline"]["bound_s"], useful=r["roofline"].get("useful_flop_ratio"),
+                        fake_run_s=r["compile_s"])
+        print(f"[dryrun] {r['arch']} {r['shape']} {r['mesh']}: {json.dumps(line)}")
+    one = Mesh((1, 1), ("data", "model"), [torch.device("meta")])
+    rows = []
+    for arch_id, kind, batch, seq, accum in measured:
+        full = get_arch(arch_id)
+        arch = full.reduced() if reduce else full
+        overrides = {f.name: getattr(arch, f.name) for f in dataclasses.fields(arch)
+                     if getattr(arch, f.name) != getattr(full, f.name)}
+        shape = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+        rec = dryrun.run_cell(arch_id, shape, False, None, overrides=overrides or None, grad_accum=accum,
+                              capacity_bytes=capacity, mesh=one)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run of {arch_id} {shape.name}: {rec.get('error')}")
+        predicted = rec["memory_analysis"]["one_card"]["peak_bytes_est"]
+        row = {"arch": arch_id, "cell": shape.name, "grad_accum": accum, "predicted": predicted,
+               "predicted_args": rec["memory_analysis"]["one_card"]["argument_size_in_bytes"],
+               "fits_one_card": rec["fits_one_card"]}
+        if on_card:
+            row["measured"] = _measured_peak(device, arch, kind, batch, seq, accum)
+            row["measured_over_predicted"] = row["measured"] / predicted
+            # the card ran the cell, so it fits: the dry-run must say so
+            if not rec["fits_one_card"]:
+                raise AssertionError(f"the dry-run says {arch_id} {shape.name} does not fit one card; the card ran it")
+        print(f"[dryrun] predicted and measured peak: {json.dumps(row)}")
+        rows.append(row)
+    print(f"[dryrun] {len(records)} cells in {sweep_s:.1f} s over {jobs} processes; capacity {capacity} bytes")
+    return {"cells": len(records), "sweep_s": sweep_s, "measured": rows,
+            "statuses": {s: sum(r["status"] == s for r in records) for s in ("ok", "skipped")}}
+
+
+def phase_sketch_roofline(device, n_items=None, rounds: int = 5) -> dict:
+    """The paper's Fig. 4 question on the card (see the module docstring):
+    the five variants' measured time against the stream read once, each
+    variant's registers bit-identical to the "torch" backend's."""
+    from repro_torch.launch import sketch_roofline
+    from repro_torch.sketch import update_registers
+
+    items = sketch_roofline.make_stream(sketch_roofline.N_ITEMS if n_items is None else n_items, device, SEED + 53)
+    reset_launches()
+    results = sketch_roofline.run(items, rounds=rounds)
+    launches = launch_counts()
+    missing = [name for name in SKETCH_ROOFLINE_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the sketch roofline: {missing}")
+    want = {}
+    for r, (_, cfg, _, _) in zip(results, sketch_roofline.VARIANTS):
+        if cfg not in want:
+            want[cfg] = update_registers(torch.zeros(cfg.m, dtype=torch.uint8, device=device), items, cfg,
+                                         ExecutionPlan(backend="torch", pipelines=1))
+        if not torch.equal(r.pop("registers"), want[cfg]):
+            raise AssertionError(f"sketch roofline {r['variant']}: registers differ from the torch backend's")
+        print(f"[sketch_roofline] {json.dumps(r)}")
+    return {"variants": results, "launches": {k: launches[k] for k in SKETCH_ROOFLINE_KERNELS}}
 
 
 def _sync(device) -> None:
@@ -3482,6 +3759,9 @@ def main() -> int:
     family = _timed(phase_family_serve, device)  # likewise
     train = _timed(phase_train, device)  # zeroes and reads the counts around each launcher run
     launches.update({name: train["runs"][SERVE_ARCH]["launches"][name] for name in TRAIN_ONLY_KERNELS})
+    _timed(phase_sharding, device)
+    dry = _timed(phase_dryrun, device)
+    roofline = _timed(phase_sketch_roofline, device)
 
     timing = _timed(phase_timing, device)
     _timed(phase_profile, device)
@@ -3517,6 +3797,12 @@ def main() -> int:
               f"bytes" + (f"; prefill dropped {run['dropped_choices']} (token, choice) pairs over "
                           f"{run['prefill_route_calls']} layers at capacity {run['capacity']}"
                           if "dropped_choices" in run else ""))
+    for row in dry["measured"]:
+        print(f"[timing] dry-run {row['arch']} {row['cell']}: predicted peak {row['predicted']} bytes, measured "
+              f"{row['measured']} ({row['measured_over_predicted']:.4f} of it), fits one card {row['fits_one_card']}")
+    for r in roofline["variants"]:
+        print(f"[timing] sketch roofline {r['variant']}: {r['measured_ms']:.6g} ms, {r['roofline_fraction']:.4g} of "
+              f"the stream read once ({r['ideal_memory_s'] * 1e3:.4g} ms)")
     for arch_id, run in train["runs"].items():
         print(f"[timing] train {arch_id} full width, {run['global_batch']} x {run['seq_len']} a step "
               f"(grad_accum {run['grad_accum']}): {run['tokens_per_s']:.6g} tokens/s, peak device memory "

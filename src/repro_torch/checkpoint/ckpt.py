@@ -19,7 +19,9 @@ Fault-tolerance contract used by train/loop.py:
 
 ``restore`` is template-based, as the reference's: the caller supplies the
 live state (from ``init_train_state``) and each leaf is copied into its
-tensors in place, on their devices.
+tensors in place, on their devices -- or, with ``shardings``, on the
+device the shardings place whole tensors on (the elastic-resume path onto
+another mesh), each leaf first checked against its sharding.
 """
 
 from __future__ import annotations
@@ -34,16 +36,12 @@ import numpy as np
 import torch
 
 from repro_torch import interop
-
-
-def _keystr(path) -> str:
-    """``jax.tree_util.keystr`` of a path of dict keys."""
-    return "".join(f"[{key!r}]" for key in path)
+from repro_torch.sharding import specs as shardspecs
 
 
 def save(state: dict, directory: str, step: int, async_write: bool = False):
     """Checkpoint a training state. Returns a join() handle when async."""
-    host_leaves = [(_keystr(path), interop.leaf_array(tensors, stacked))
+    host_leaves = [(shardspecs.keystr(path), interop.leaf_array(tensors, stacked))
                    for path, tensors, stacked in interop.train_state_leaves(state)]
 
     def write():
@@ -81,8 +79,27 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(template: dict, directory: str, step: int) -> dict:
-    """Load ``step`` into the tensors of ``template`` (in place); returns it."""
+def _place(state: dict, device: torch.device) -> None:
+    """Move every tensor of a training state to ``device``, in place of the
+    old ones (the model's parameters keep their ``Parameter`` objects)."""
+    state["params"].to(device)
+    opt = state["opt"]
+    for name in ("mu", "nu", "ef"):
+        if opt.get(name) is not None:
+            opt[name] = {k: v.to(device) for k, v in opt[name].items()}
+    opt["count"] = opt["count"].to(device)
+    state["step"] = state["step"].to(device)
+    state["sketch"] = state["sketch"].to(device)
+
+
+def restore(template: dict, directory: str, step: int, shardings=None) -> dict:
+    """Load ``step`` into the tensors of ``template`` (in place); returns it.
+
+    ``shardings``: an optional tree of ``NamedSharding``s shaped like the
+    reference's state (``specs.named`` of its specs; None where
+    unconstrained).  Each leaf is checked against its sharding -- ValueError
+    where the reference's ``device_put`` raises -- and the state is placed
+    on the shardings' device, which may differ from the template's."""
     final = os.path.join(directory, f"step_{step}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
@@ -97,7 +114,7 @@ def restore(template: dict, directory: str, step: int) -> dict:
 
     loaded = []
     for path, tensors, stacked in leaves:
-        key = _keystr(path)
+        key = shardspecs.keystr(path)
         meta = by_key.get(key)
         if meta is None:
             raise KeyError(f"checkpoint missing leaf {key}")
@@ -105,7 +122,14 @@ def restore(template: dict, directory: str, step: int) -> dict:
         shape = ((len(tensors),) if stacked else ()) + tuple(tensors[0].shape)
         if tuple(arr.shape) != shape:
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != template {shape}")
+        sharding = shardspecs.at_path(shardings, path)
+        if sharding is not None:
+            sharding.check(arr.shape, key)
         loaded.append((arr, tensors, stacked))
+    if shardings is not None:
+        _place(template, shardspecs.tree_device(shardings))
+        loaded = [(arr, tensors, stacked) for (arr, _, _), (_, tensors, stacked)
+                  in zip(loaded, interop.train_state_leaves(template))]
     with torch.no_grad():
         for arr, tensors, stacked in loaded:
             for t, a in zip(tensors, arr if stacked else [arr]):

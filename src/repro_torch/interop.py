@@ -291,6 +291,27 @@ def _param_leaves(named: Dict[str, torch.Tensor], arch: ArchConfig) -> list:
     return leaves
 
 
+def param_leaves(model: transformer.Model) -> list:
+    """(key path, tensors, stacked) of each leaf of the reference's
+    parameter tree over a port model (``model.arch`` lays out the stages)."""
+    return _param_leaves(dict(model.named_parameters()), model.arch)
+
+
+def meta_tree(leaves) -> Dict[str, object]:
+    """Nested dicts of ``meta`` tensors, each of its leaf's shape and dtype
+    as the reference holds it (a stage's layers stacked), from (key path,
+    tensors, stacked) leaves; nothing is allocated.  The sharding rules
+    (``repro_torch.sharding.specs``) read these trees."""
+    out: Dict[str, object] = {}
+    for path, tensors, stacked in leaves:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        shape = ((len(tensors),) if stacked else ()) + tuple(tensors[0].shape)
+        node[path[-1]] = torch.empty(shape, dtype=tensors[0].dtype, device="meta")
+    return out
+
+
 def model_to_reference(model: transformer.Model, arch: ArchConfig) -> Dict[str, object]:
     """The reference's parameter tree (float32 numpy arrays) of a port model."""
     return _tree(_param_leaves(dict(model.named_parameters()), arch))

@@ -16,8 +16,11 @@ One module per TPU kernel of the reference (``repro/kernels``):
                                        chunk math (no Pallas backward)
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
-launches its kernel or raises.  Each wrapper counts its launches in a plain
-integer attribute, ``launches``.  Sources live in ``csrc/`` and build with
+launches its kernel or raises; for ``meta`` tensors (the op analysis and
+the dry-run) it returns empty outputs of its kernel's shapes.  Each wrapper
+counts its launches in a plain integer attribute, ``launches``, and
+declares its kernel's FLOPs and bytes at each launch, and on ``meta``
+tensors, to ``repro_torch.obs.costs``.  Sources live in ``csrc/`` and build with
 nvcc at first launch (``_build.py``), so importing this package needs
 neither nvcc nor a card.
 """

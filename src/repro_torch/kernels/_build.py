@@ -135,6 +135,15 @@ def check(lib: str, error: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {error} ({text})")
 
 
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """Whether a wrapper was given ``meta`` tensors (shapes, no data), as the
+    op analysis and the dry-run give them: the wrapper then returns empty
+    outputs of its kernel's shapes and declares its kernel's cost
+    (``repro_torch.obs.costs``), running neither the kernel nor its plain
+    version."""
+    return any(t.device.type == "meta" for t in tensors)
+
+
 def require_cuda(*tensors: torch.Tensor) -> torch.device:
     """The one CUDA device all ``tensors`` lie on; raise otherwise."""
     devices = {t.device for t in tensors}

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.sparse_scatter import MAX_SLICES, stream_split
+from repro_torch.obs import costs
 from repro_torch.sketch import hll
 
 TILE_BYTES = 1 << 16  # register bytes a tile holds in shared memory (64 KiB)
@@ -166,6 +167,9 @@ def bank_scatter_max(
     if all(t.device.type == "cpu" for t in (registers, keys, idx, rank)):
         return bank_scatter_max_plain(registers, keys, idx, rank)
     flat = _check(registers, keys, idx, rank)
+    if _build.on_meta(registers, *flat):
+        _declare(registers, flat[0].numel())
+        return torch.empty_like(registers)
     device = _build.require_cuda(registers, *flat)
     rows, m = registers.shape
     if bank_scatter_path(rows, m, flat[0].numel(), _build.sm_count(device)) == "global":
@@ -186,6 +190,11 @@ def bank_scatter_max_tiled(
         return bank_scatter_max_plain(registers, keys, idx, rank)
     flat = _check(registers, keys, idx, rank)
     return _tiled(registers, *flat, _build.require_cuda(registers, *flat))
+
+
+def _declare(registers: torch.Tensor, n: int) -> None:
+    """The bank read and written once, 12 B an entry of the stream."""
+    costs.kernel("bank_scatter_max", 0, 2 * registers.numel() + 12 * n)
 
 
 def _tiled(registers, keys, idx, rank, device) -> torch.Tensor:
@@ -215,6 +224,7 @@ def _tiled(registers, keys, idx, rank, device) -> torch.Tensor:
                  m, plan.rows_per_tile, plan.tiles, per, slices, UNIT_ITEMS, sms, scratch.data_ptr(), words,
                  _build.stream(device))
     _build.check("bank_scatter", err, "bank_scatter_max")
+    _declare(registers, n)
     bank_scatter_max.launches += 1
     return out
 
@@ -247,6 +257,7 @@ def _global(registers, keys, idx, rank, device) -> torch.Tensor:
             rows, m, _build.stream(device),
         )
     _build.check("bank_scatter", err, "bank_scatter_max")
+    _declare(registers, keys.numel())
     bank_scatter_max.launches += 1
     return out
 

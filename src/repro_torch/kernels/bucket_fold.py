@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs import costs
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -52,8 +53,12 @@ def bucket_fold(partials: torch.Tensor) -> torch.Tensor:
     if partials.device.type == "cpu":
         return bucket_fold_plain(partials)
     partials = _check(partials)
-    device = _build.require_cuda(partials)
     k, m = partials.shape
+    nbytes = (k + 1) * m * _ELEMENT_BYTES[partials.dtype]  # the partials in, the fold out
+    if _build.on_meta(partials):
+        costs.kernel("bucket_fold", 0, nbytes)
+        return torch.empty((m,), dtype=partials.dtype, device="meta")
+    device = _build.require_cuda(partials)
     out = torch.empty((m,), dtype=partials.dtype, device=device)
     fn = _build.function("bucket_fold", "bucket_fold_launch", _ARGTYPES)
     with torch.cuda.device(device):
@@ -62,6 +67,7 @@ def bucket_fold(partials: torch.Tensor) -> torch.Tensor:
             _build.sm_count(device), _build.stream(device),
         )
     _build.check("bucket_fold", err, "bucket_fold")
+    costs.kernel("bucket_fold", 0, nbytes)
     bucket_fold.launches += 1
     return out
 

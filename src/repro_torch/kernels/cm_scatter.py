@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.sparse_scatter import MAX_SLICES, stream_split
+from repro_torch.obs import costs
 from repro_torch.sketch.countmin import CMConfig, cm_hash_index
 
 COUNTER_DTYPE = torch.int32  # the uint32 counters' bits
@@ -175,6 +176,9 @@ def cm_scatter_add(
     if all(t.device.type == "cpu" for t in (counters, keys, items)):
         return cm_scatter_add_plain(counters, keys, items, cfg)
     keys, items = _check_scatter(counters, keys, items, cfg)
+    if _build.on_meta(counters, keys, items):
+        _declare(counters, keys.numel())
+        return torch.empty_like(counters)
     device = _build.require_cuda(counters, keys, items)
     counters = counters.contiguous()
     rows, n = counters.shape[0], keys.numel()
@@ -199,8 +203,14 @@ def cm_scatter_add(
                  cfg.width, cfg.seed, plan.rows_per_tile, plan.tiles, plan.log2_width, per, slices,
                  UNIT_ITEMS, scratch.data_ptr(), words, _build.stream(device))
     _build.check("cm_scatter", err, "cm_scatter_add")
+    _declare(counters, n)
     cm_scatter_add.launches += 1
     return out
+
+
+def _declare(counters: torch.Tensor, n: int) -> None:
+    """The bank read and written once, 8 B a (key, item) pair."""
+    costs.kernel("cm_scatter_add", 0, 8 * n + 2 * 4 * counters.numel())
 
 
 def cm_scatter_add_global(
@@ -226,6 +236,7 @@ def cm_scatter_add_global(
         err = fn(out.data_ptr(), keys.data_ptr(), items.data_ptr(), n, out.shape[0], cfg.depth, cfg.width,
                  cfg.seed, _build.stream(device))
     _build.check("cm_scatter", err, "cm_scatter_add")
+    _declare(out, n)
     cm_scatter_add.launches += 1
     return out
 
@@ -257,6 +268,9 @@ def cm_window_fold_sum(ring: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if ring.device.type == "cpu" and mask.device.type == "cpu":
         return cm_window_fold_sum_plain(ring, mask)
     ring, mask = _check_ring(ring, mask)
+    if _build.on_meta(ring, mask):
+        costs.kernel("cm_window_fold_sum", 0, 4 * (ring.numel() + ring[0].numel()))
+        return torch.empty(ring.shape[1:], dtype=ring.dtype, device="meta")
     if ring.data_ptr() % 16:  # a view into a larger tensor may start off a 16-byte boundary
         ring = ring.clone()
     device = _build.require_cuda(ring, mask)
@@ -267,6 +281,7 @@ def cm_window_fold_sum(ring: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         err = fn(ring.data_ptr(), mask.data_ptr(), window, out.numel(), out.data_ptr(),
                  _build.stream(device))
     _build.check("cm_scatter", err, "cm_window_fold_sum")
+    costs.kernel("cm_window_fold_sum", 0, 4 * (ring.numel() + out.numel()))  # the ring in, the fold out
     cm_window_fold_sum.launches += 1
     return out
 

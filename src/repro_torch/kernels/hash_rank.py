@@ -20,6 +20,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs import costs
 from repro_torch.sketch import hll
 from repro_torch.sketch.hll import HLLConfig
 
@@ -50,9 +51,12 @@ def hash_rank(items: torch.Tensor, cfg: HLLConfig) -> Tuple[torch.Tensor, torch.
     if items.device.type == "cpu":
         return hash_rank_plain(items, cfg)
     items = _check_items(items)
-    device = _build.require_cuda(items)
     idx = torch.empty_like(items)
     rank = torch.empty_like(items)
+    if _build.on_meta(items):
+        costs.kernel("hash_rank", 0, 12 * items.numel())
+        return idx, rank
+    device = _build.require_cuda(items)
     if items.numel() == 0:
         return idx, rank
     fn = _build.function("hash_rank", "hash_rank_launch", _ARGTYPES)
@@ -62,6 +66,7 @@ def hash_rank(items: torch.Tensor, cfg: HLLConfig) -> Tuple[torch.Tensor, torch.
             cfg.p, cfg.hash_bits, cfg.seed, _build.stream(device),
         )
     _build.check("hash_rank", err, "hash_rank")
+    costs.kernel("hash_rank", 0, 12 * items.numel())  # 4 B in, 8 B out an item
     hash_rank.launches += 1
     return idx, rank
 

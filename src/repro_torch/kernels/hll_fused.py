@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.hash_rank import _check_items
+from repro_torch.obs import costs
 from repro_torch.sketch import hll
 from repro_torch.sketch.hll import HLLConfig
 
@@ -47,6 +48,11 @@ def hll_partials(n: int, p: int, sms: int) -> int:
     file costs m bytes zeroed, stored and read back whatever its items."""
     per_file = max(FILE_THREADS, (1 << p) // 16)
     return max(1, min(FILES_PER_SM * sms, -(-n // per_file)))
+
+
+def _bytes(n: int, cfg: HLLConfig) -> int:
+    """The stream read once and the registers read and written once."""
+    return 4 * n + 2 * cfg.m
 
 
 def _check(registers: torch.Tensor, items: torch.Tensor, n_valid: Optional[int], cfg: HLLConfig):
@@ -81,6 +87,9 @@ def hll_update_fused(
     if registers.device.type == "cpu" and items.device.type == "cpu":
         return hll_update_fused_plain(registers, items, n_valid, cfg)
     items, n = _check(registers, items, n_valid, cfg)
+    if _build.on_meta(registers, items):
+        costs.kernel("hll_update_fused", 0, _bytes(n, cfg))
+        return torch.empty_like(registers)
     device = _build.require_cuda(registers, items)
     registers = registers.contiguous()
     if registers.data_ptr() % 16:  # a view into a larger tensor may start off a 16-byte boundary
@@ -97,6 +106,7 @@ def hll_update_fused(
             scratch.data_ptr(), files, _build.stream(device),
         )
     _build.check("hll_fused", err, "hll_update_fused")
+    costs.kernel("hll_update_fused", 0, _bytes(n, cfg))
     hll_update_fused.launches += 1
     return out
 

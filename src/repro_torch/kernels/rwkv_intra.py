@@ -55,12 +55,40 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs import costs
 
 MAX_C = 64
 MAX_N = 64
 PLAIN_BLOCK_CELLS = 512  # the plain version's (g, C, C, N) transient: 512 MiB at C = N = 64
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def intra_flops(g: int, c: int, n: int) -> int:
+    """float32 operations of rwkv_intra on (G, C, N) cells: per pair s < t and
+    n a subtract, two multiplies and an add (the exp not counted); per (t, n)
+    three for the diagonal; per (t, s <= t, n) a multiply-add for y."""
+    return g * n * (4 * (c * (c - 1) // 2) + 3 * c + 2 * (c * (c + 1) // 2))
+
+
+def intra_bwd_flops(g: int, c: int, n: int) -> int:
+    """float32 operations of rwkv_intra_bwd on (G, C, N) cells, the exps not
+    counted: per pair s < t and n, A's subtract, two multiplies and add, dA's
+    multiply-add, and P's and Q's subtract, two multiplies and add; per
+    (s <= t, n) dv's multiply-add; per (t, n) the diagonal terms of A, dA,
+    dr, dk, dLex, dL and du (12)."""
+    pairs = c * (c - 1) // 2
+    return g * n * (pairs * (4 + 2 + 4 + 4) + 2 * (c * (c + 1) // 2) + 12 * c)
+
+
+def _declare(g: int, c: int, n: int) -> None:
+    """Five float32 tiles and u in, one tile out."""
+    costs.kernel("rwkv_intra", intra_flops(g, c, n), 4 * (6 * g * c * n + g * n))
+
+
+def _declare_bwd(g: int, c: int, n: int) -> None:
+    """Six float32 tiles and u in, five tiles and du out."""
+    costs.kernel("rwkv_intra_bwd", intra_bwd_flops(g, c, n), 4 * (11 * g * c * n + 2 * g * n))
 
 
 def _check(r, k, v, lex, lcum, u) -> tuple:
@@ -119,9 +147,12 @@ def rwkv_intra(r, k, v, lex, lcum, u) -> torch.Tensor:
     if all(t.device.type == "cpu" for t in tensors):
         return rwkv_intra_plain(*tensors)
     g, c, n = _check(*tensors)
-    device = _build.require_cuda(*tensors)
     if not (1 <= c <= MAX_C and 1 <= n <= MAX_N):
         raise ValueError(f"the kernel takes 1 <= C <= {MAX_C} and 1 <= N <= {MAX_N}, got C={c}, N={n}")
+    if _build.on_meta(*tensors):
+        _declare(g, c, n)
+        return torch.empty((g, c, n), dtype=torch.float32, device="meta")
+    device = _build.require_cuda(*tensors)
     rf, kf, vf, lexf, lf, uf = (t.to(torch.float32).contiguous() for t in tensors)
     y = torch.empty((g, c, n), dtype=torch.float32, device=device)
     if g == 0:
@@ -131,6 +162,7 @@ def rwkv_intra(r, k, v, lex, lcum, u) -> torch.Tensor:
         err = fn(rf.data_ptr(), kf.data_ptr(), vf.data_ptr(), lexf.data_ptr(), lf.data_ptr(), uf.data_ptr(),
                  y.data_ptr(), g, c, n, _build.stream(device))
     _build.check("rwkv_intra", err, "rwkv_intra")
+    _declare(g, c, n)
     rwkv_intra.launches += 1
     return y
 
@@ -183,9 +215,13 @@ def rwkv_intra_bwd(r, k, v, lex, lcum, u, dy) -> tuple:
     g, c, n = _check(*tensors[:6])
     if dy.shape != r.shape:
         raise ValueError(f"dy must be {tuple(r.shape)} like r, got {tuple(dy.shape)}")
-    device = _build.require_cuda(*tensors)
     if not (1 <= c <= MAX_C and 1 <= n <= MAX_N):
         raise ValueError(f"the kernel takes 1 <= C <= {MAX_C} and 1 <= N <= {MAX_N}, got C={c}, N={n}")
+    if _build.on_meta(*tensors):
+        _declare_bwd(g, c, n)
+        return tuple(torch.empty(shape, dtype=torch.float32, device="meta")
+                     for shape in [(g, c, n)] * 5 + [(g, n)])
+    device = _build.require_cuda(*tensors)
     ins = [t.to(torch.float32).contiguous() for t in tensors]
     outs = [torch.empty((g, c, n), dtype=torch.float32, device=device) for _ in range(5)]
     outs.append(torch.empty((g, n), dtype=torch.float32, device=device))
@@ -195,6 +231,7 @@ def rwkv_intra_bwd(r, k, v, lex, lcum, u, dy) -> tuple:
     with torch.cuda.device(device):
         err = fn(*(t.data_ptr() for t in ins + outs), g, c, n, _build.stream(device))
     _build.check("rwkv_intra_bwd", err, "rwkv_intra_bwd")
+    _declare_bwd(g, c, n)
     rwkv_intra_bwd.launches += 1
     return tuple(outs)
 

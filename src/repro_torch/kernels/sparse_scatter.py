@@ -34,6 +34,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs import costs
 
 TILE_CELLS = 1 << 14  # int32 cells a tile holds in shared memory (64 KB)
 MAX_TILE_ROWS = 1024  # rows a tile holds at most (its shared row counters)
@@ -138,8 +139,13 @@ def sparse_scatter_coo(
     if all(t.device.type == "cpu" for t in (row, bucket, rank)):
         return sparse_scatter_coo_plain(row, bucket, rank, rows, m)
     row, bucket, rank = _check(row, bucket, rank, rows, m)
-    device = _build.require_cuda(row, bucket, rank)
     n = row.numel()
+    nbytes = 12 * n + 4 * rows * m + 4 * rows  # the triples in, the cells and counts out
+    if _build.on_meta(row, bucket, rank):
+        costs.kernel("sparse_scatter_coo", 0, nbytes)
+        return (torch.empty((rows, m), dtype=torch.int32, device="meta"),
+                torch.empty((rows,), dtype=torch.int32, device="meta"))
+    device = _build.require_cuda(row, bucket, rank)
     if n == 0 or rows == 0:
         return (torch.zeros((rows, m), dtype=torch.int32, device=device),
                 torch.zeros((rows,), dtype=torch.int32, device=device))
@@ -168,6 +174,7 @@ def sparse_scatter_coo(
                      plan.tiles_per_row, plan.tiles, per, slices, cells.data_ptr(), distinct.data_ptr(),
                      offsets.data_ptr(), wide.data_ptr(), packed.data_ptr(), stream)
     _build.check("sparse_scatter", err, "sparse_scatter_coo")
+    costs.kernel("sparse_scatter_coo", 0, nbytes)
     sparse_scatter_coo.launches += 1
     return cells, distinct
 

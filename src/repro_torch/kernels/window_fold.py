@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs import costs
 from repro_torch.sketch import hll
 
 _FOLD_ARGTYPES = [
@@ -72,6 +73,11 @@ def window_fold_max(ring: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """
     if ring.device.type == "cpu" and mask.device.type == "cpu":
         return window_fold_max_plain(ring, mask)
+    if _build.on_meta(ring, mask):
+        ring = _check_ring(ring, "ring")
+        _check_mask(mask, ring.shape[0])
+        costs.kernel("window_fold_max", 0, ring.numel() + ring[0].numel())
+        return torch.empty(ring.shape[1:], dtype=ring.dtype, device="meta")
     ring = _aligned(_check_ring(ring, "ring"))
     mask = _check_mask(mask, ring.shape[0])
     device = _build.require_cuda(ring, mask)
@@ -82,6 +88,7 @@ def window_fold_max(ring: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         err = fn(ring.data_ptr(), mask.data_ptr(), window, rows * m, out.data_ptr(),
                  _build.stream(device))
     _build.check("window_fold", err, "window_fold_max")
+    costs.kernel("window_fold_max", 0, ring.numel() + out.numel())  # the ring in, the fold out
     window_fold_max.launches += 1
     return out
 
@@ -98,6 +105,10 @@ def window_merge_max(parts: torch.Tensor) -> torch.Tensor:
     """
     if parts.device.type == "cpu":
         return window_merge_max_plain(parts)
+    if _build.on_meta(parts):
+        parts = _check_ring(parts, "parts")
+        costs.kernel("window_merge_max", 0, parts.numel() + parts[0].numel())
+        return torch.empty(parts.shape[1:], dtype=parts.dtype, device="meta")
     parts = _aligned(_check_ring(parts, "parts"))
     device = _build.require_cuda(parts)
     k, rows, m = parts.shape
@@ -106,6 +117,7 @@ def window_merge_max(parts: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(device):
         err = fn(parts.data_ptr(), k, rows * m, out.data_ptr(), _build.stream(device))
     _build.check("window_fold", err, "window_merge_max")
+    costs.kernel("window_merge_max", 0, parts.numel() + out.numel())  # the fragments in, the fold out
     window_merge_max.launches += 1
     return out
 

@@ -13,8 +13,6 @@ reference tests' ``--xla_force_host_platform_device_count``: four shards
 on one CPU, or four row blocks on one card.
 
 Functions, not module constants: importing this module touches no device.
-The production meshes of the reference (``make_production_mesh``) belong
-to the dry-run and roofline launchers, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -83,6 +81,22 @@ def make_auto_mesh(shape, axes, devices: Optional[Sequence] = None) -> Mesh:
         resolve_device(None)  # raises without a card
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return Mesh(tuple(shape), tuple(axes), tuple(devices))
+
+
+def make_production_mesh(*, multi_pod: bool = False, tp: int = 16, devices: Optional[Sequence] = None) -> Mesh:
+    """The (256 // tp, tp) mesh on ("data", "model"), or with ``multi_pod``
+    the (2, 256 // tp, tp) mesh on ("pod", "data", "model").  ``tp`` other
+    than 16 refactors the same 256 positions a pod into data x model.
+
+    By default every position is the card (raising when there is none), as
+    ``make_test_mesh`` puts them: the dry-run asks what each position would
+    hold, and the sketch roofline runs all of them from one process."""
+    data = 256 // tp
+    shape = (2, data, tp) if multi_pod else (data, tp)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if devices is None:
+        devices = [resolve_device(None)] * math.prod(shape)
+    return make_auto_mesh(shape, axes, devices)
 
 
 def make_test_mesh(shape=(2, 2), axes=("data", "model"), device=None) -> Mesh:

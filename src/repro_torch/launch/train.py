@@ -6,10 +6,14 @@
 
 Port of ``repro/launch/train.py``: the same flags and defaults, plus
 ``--device`` (the card by default; ``cpu`` runs every kernel's plain
-PyTorch version).  The reference's multi-host entry
-(``jax.distributed.initialize`` when ``JAX_COORDINATOR`` is set) and its
-FSDP/TP shardings have no counterpart on one card; they belong to the
-sharding slice (ROADMAP A.3).
+PyTorch version).  The reference's loop, like this one, runs the step
+without shardings; its multi-host entry (``jax.distributed.initialize``
+when ``JAX_COORDINATOR`` is set) has no counterpart in the port, which
+runs one process (the single-controller model of ``launch/mesh.py``).
+The FSDP/TP shardings of ``sharding/specs.py`` go through the same step
+(``train.step.make_jitted_step``'s sharding arguments), and the dry-run
+(``launch/dryrun.py``) asks what each position of the production meshes
+would hold under them.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
+from repro_torch.sharding import ctx as shardctx
 
 NEG_INF = -1e30
 
@@ -92,6 +93,10 @@ def flash_attention(
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
+    bsh = ("batch", None, "model", None)
+    q = shardctx.constrain(q, bsh)
+    k = shardctx.constrain(k, bsh)
+    v = shardctx.constrain(v, bsh)
     qf = q.float()
     m_run = torch.full((b, sq, h), NEG_INF, dtype=torch.float32, device=q.device)
     l_run = torch.zeros((b, sq, h), dtype=torch.float32, device=q.device)
@@ -117,9 +122,10 @@ def qkv_project(params, x: torch.Tensor, arch: ArchConfig):
     """x (B, S, d) -> q (B, S, H, D), k/v (B, S, Hkv, D) with optional qk-norm."""
     b, s, _ = x.shape
     hd, dt = arch.head_dim, x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(b, s, arch.n_heads, hd)
-    k = (x @ params["wk"].to(dt)).reshape(b, s, arch.n_kv_heads, hd)
-    v = (x @ params["wv"].to(dt)).reshape(b, s, arch.n_kv_heads, hd)
+    bsh = ("batch", None, "model", None)
+    q = shardctx.constrain((x @ params["wq"].to(dt)).reshape(b, s, arch.n_heads, hd), bsh)
+    k = shardctx.constrain((x @ params["wk"].to(dt)).reshape(b, s, arch.n_kv_heads, hd), bsh)
+    v = shardctx.constrain((x @ params["wv"].to(dt)).reshape(b, s, arch.n_kv_heads, hd), bsh)
     if arch.qk_norm:
         q = common.head_rms_norm(q, params["q_norm"], arch.norm_eps)
         k = common.head_rms_norm(k, params["k_norm"], arch.norm_eps)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common
+from repro_torch.sharding import ctx as shardctx
 from repro_torch.sketch.hll import resolve_device
 
 C_FACTOR = 8.0
@@ -147,12 +148,13 @@ def block(params, x: torch.Tensor, arch: ArchConfig, *, return_state: bool = Fal
     (trailing conv window + final hidden state).
     """
     dt = x.dtype
-    # the sharding slice (ROADMAP A.12.5) constrains both branches and a, b
-    # to ("batch", None, "model") here; on one device there is nothing to do
-    gate = F.gelu((x @ params["w_gate"].to(dt)).float(), approximate="tanh")
-    xb = x @ params["w_x"].to(dt)
+    bsd = ("batch", None, "model")
+    gate = F.gelu(shardctx.constrain(x @ params["w_gate"].to(dt), bsd).float(), approximate="tanh")
+    xb = shardctx.constrain(x @ params["w_x"].to(dt), bsd)
     xc = _causal_conv(params, xb)
     a, b = _gates(params, xc)
+    a = shardctx.constrain(a, bsd)
+    b = shardctx.constrain(b, bsd)
     h = rglru_scan(a, b)  # (B, S, d) float32
     out = (h * gate).to(dt) @ params["w_out"].to(dt)
     if not return_state:

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rwkv_intra import rwkv_intra, rwkv_intra_bwd
 from repro_torch.models import common
+from repro_torch.sharding import ctx as shardctx
 
 LORA_RANK = 32
 DECAY_RANK = 64
@@ -128,11 +129,13 @@ def _projections(params, x: torch.Tensor, arch: ArchConfig):
     """Full-sequence r/k/v/decay projections (B, S, H, N) + gate (B, S, d)."""
     b, s, d = x.shape
     h, n = arch.n_heads, arch.rwkv_head_dim
-    # the sharding slice (ROADMAP A.12) constrains r, k, v and log_w to
-    # ("batch", None, "model", None) here; on one device there is nothing to do
     r, k, v, g, log_w = _mixed_projections(params, _ddlerp(params, x, _shift(x)), x.dtype)
-    return (r.reshape(b, s, h, n), k.reshape(b, s, h, n), v.reshape(b, s, h, n), g,
-            log_w.reshape(b, s, h, n))
+    bshn = ("batch", None, "model", None)
+    r = shardctx.constrain(r.reshape(b, s, h, n), bshn)
+    k = shardctx.constrain(k.reshape(b, s, h, n), bshn)
+    v = shardctx.constrain(v.reshape(b, s, h, n), bshn)
+    log_w = shardctx.constrain(log_w.reshape(b, s, h, n), bshn)
+    return r, k, v, g, log_w
 
 
 def _head_norm(params, y: torch.Tensor, arch: ArchConfig, eps: float = 64e-5) -> torch.Tensor:
@@ -177,6 +180,7 @@ def time_mix(params, x: torch.Tensor, arch: ArchConfig, state: torch.Tensor = No
     u = params["u"].float().reshape(h, n)
     if state is None:
         state = _zero_state(b, arch, x.device)
+    state = shardctx.constrain(state, ("batch", "model", None, None))
     ys = []
     for t in range(s):
         state, y = recurrence_step(state, r[:, t], k[:, t], v[:, t], log_w[:, t], u)
@@ -235,6 +239,7 @@ def time_mix_chunked(params, x: torch.Tensor, arch: ArchConfig, state: torch.Ten
     u = params["u"].float().reshape(h, n)
     if state is None:
         state = _zero_state(b, arch, x.device)
+    state = shardctx.constrain(state, ("batch", "model", None, None))
 
     # (B, NC, C, H, N) f32 chunk views
     def chunked(t):

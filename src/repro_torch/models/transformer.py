@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, common, moe, rglru, rwkv6
+from repro_torch.sharding import ctx as shardctx
 from repro_torch.sketch.hll import resolve_device
 
 
@@ -232,9 +233,11 @@ def _apply_sublayer(kind: str, sub: Block, x: torch.Tensor, positions, arch: Arc
             state = dict(state, cm_x_prev=h2[:, -1])
     else:
         ch = common.swiglu(sub.channel, h2)
-    # the sequence-parallel constraint of the sharding slice (ROADMAP A.12)
-    # goes here; on one device there is nothing to do
-    return x + ch, aux, state
+    out = x + ch
+    hints = shardctx.get_hints()
+    if hints is not None and hints.seq_parallel:
+        out = shardctx.constrain(out, ("batch", "model", None))
+    return out, aux, state
 
 
 def embed_tokens(model: Model, batch, arch: ArchConfig) -> torch.Tensor:

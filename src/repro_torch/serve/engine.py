@@ -246,7 +246,7 @@ def decode_step(model: transformer.Model, cache, token: torch.Tensor, pos, arch:
             if per_row:
                 new[rows, (pos % w).long()] = pos
             else:
-                new[(pos[0] % w).long()] = pos[0]
+                new[(pos[:1] % w).long()] = pos[:1]  # a 1-D index: no host read of the slot
             new_pos_maps[key] = new
 
     layer = iter(model.layers)

@@ -21,6 +21,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.obs import costs
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll
 from repro_torch.sketch.hll import HLLConfig
@@ -51,6 +52,15 @@ def _pad_rows(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
+def _gathered(kind: str, part: torch.Tensor, position: int) -> torch.Tensor:
+    """``part``, computed at mesh position ``position``, as it reaches the
+    caller (position 0): its bytes are declared moved between positions,
+    the op analysis's collective bytes (``repro_torch.obs.costs``)."""
+    if position:
+        costs.collective(kind, part.numel() * part.element_size())
+    return part
+
+
 def mesh_fold(plan: ExecutionPlan, registers, arrays, apply_fn):
     """The mesh placement rule, shared by sketch and bank dispatch.
 
@@ -74,9 +84,9 @@ def mesh_fold(plan: ExecutionPlan, registers, arrays, apply_fn):
     home = registers.device
     folded = None
     for i, dev in enumerate(_shard_devices(plan)):
-        part = apply_fn(
+        part = _gathered("all-reduce", apply_fn(
             registers.to(dev, copy=True), *(x[i * per : (i + 1) * per].to(dev) for x in arrays)
-        ).to(home)
+        ), i).to(home)
         folded = part if folded is None else torch.maximum(folded, part)
     return folded
 
@@ -104,9 +114,9 @@ def row_shard_fold(plan: ExecutionPlan, registers, keys, arrays, apply_fn):
     outs = []
     for i, dev in enumerate(_shard_devices(plan)):
         local_keys = (keys - i * block).to(dev)
-        outs.append(apply_fn(
+        outs.append(_gathered("all-gather", apply_fn(
             regs[i * block : (i + 1) * block].to(dev), local_keys, *(x.to(dev) for x in arrays)
-        ).to(home))
+        ), i).to(home))
     return torch.cat(outs)[:rows]
 
 
@@ -133,7 +143,7 @@ def row_shard_apply(plan: ExecutionPlan, fn, arrays: Sequence, in_dims: Sequence
             (a if d is None else a.narrow(d, i * block, block)).to(dev)
             for a, d in zip(staged, in_dims)
         ]
-        outs.append(fn(*args).to(home))
+        outs.append(_gathered("all-gather", fn(*args), i).to(home))
     return torch.cat(outs, dim=out_dim).narrow(out_dim, 0, rows)
 
 
@@ -162,7 +172,8 @@ def cm_mesh_sum(plan: ExecutionPlan, counters, arrays, apply_fn):
     delta = None
     for i, dev in enumerate(_shard_devices(plan)):
         zeros = torch.zeros(counters.shape, dtype=counters.dtype, device=dev)
-        part = apply_fn(zeros, *(x[i * per : (i + 1) * per].to(dev) for x in arrays)).to(home)
+        part = _gathered("all-reduce", apply_fn(zeros, *(x[i * per : (i + 1) * per].to(dev) for x in arrays)),
+                         i).to(home)
         delta = part if delta is None else delta + part
     return counters + delta
 

@@ -74,7 +74,9 @@ def register_histogram(registers: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
     are offset by b*K.  A register value beyond max_rank (possible only via
     a corrupted blob) is routed to a trailing bin that is dropped, so it can
     never leak a count into a neighboring batch; the host path raises on
-    the same input.
+    the same input.  On ``meta`` tensors (the dry-run's training step),
+    where bincount has no kernel (its output length depends on the data),
+    the counts are an empty tensor of their shape.
     """
     validate_registers(registers, cfg, batched=True)
     k = histogram_size(cfg)
@@ -84,7 +86,10 @@ def register_histogram(registers: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
     idx = flat + k * torch.arange(b, dtype=torch.int64, device=flat.device)[:, None]
     # invalid (negative or > max_rank) -> dropped, never leaked to a neighbor
     idx = torch.where((flat >= 0) & (flat < k), idx, b * k)
-    counts = torch.bincount(idx.reshape(-1), minlength=b * k + 1)[: b * k]
+    if idx.device.type == "meta":
+        counts = torch.empty(b * k, dtype=torch.int64, device=idx.device)
+    else:
+        counts = torch.bincount(idx.reshape(-1), minlength=b * k + 1)[: b * k]
     return counts.reshape(batch_shape + (k,)).to(torch.int32)
 
 

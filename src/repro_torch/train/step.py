@@ -2,7 +2,8 @@
 
 Port of ``repro/train/step.py``.  The reference jits the step and donates
 its state; PyTorch runs eagerly, so ``make_jitted_step`` returns the eager
-step and the step updates its state in place: the model's parameters, the
+step (with shardings given, checked against them as jit's ``in_shardings``
+check, on the mesh's device) and the step updates its state in place: the model's parameters, the
 optimizer's ``mu``, ``nu`` and ``count``, the step counter and the sketch
 registers.  The tap runs on the tokens already on the device -- one
 ``hll_update_fused`` launch on the card (``sketch.dispatch.datapath_tap``)
@@ -22,11 +23,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import interop
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
 from repro_torch.models.common import scalar
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import OptimizerConfig
+from repro_torch.sharding import specs as shardspecs
 from repro_torch.sketch import estimators, hll
 from repro_torch.sketch.dispatch import datapath_tap
 from repro_torch.sketch.estimators import DEFAULT_ESTIMATOR
@@ -126,8 +129,32 @@ def train_step(state: dict, batch: dict, arch: ArchConfig, cfg: TrainConfig) -> 
     return state, metrics
 
 
-def make_jitted_step(arch: ArchConfig, cfg: TrainConfig):
-    """The step with ``arch`` and ``cfg`` bound.  The reference's jit with a
-    donated state; PyTorch runs eagerly and the step updates in place.  Its
-    mesh and sharding arguments belong to the sharding slice (ROADMAP A.3)."""
-    return functools.partial(train_step, arch=arch, cfg=cfg)
+def make_jitted_step(arch: ArchConfig, cfg: TrainConfig, mesh=None, state_shardings=None,
+                     batch_shardings=None):
+    """The step with ``arch`` and ``cfg`` bound: the reference's jit with a
+    donated state and optional explicit shardings.  PyTorch runs eagerly and
+    the step updates in place.
+
+    ``state_shardings`` is the reference-shaped tree of ``NamedSharding``s
+    (``params``, ``opt.mu``/``nu``/``count``/``ef``, ``step``, ``sketch``;
+    None where unconstrained), ``batch_shardings`` one a batch key.  With them
+    given, each call checks every leaf -- a stage's layers stacked, as the
+    reference holds them -- against its sharding, raising ValueError where
+    jit's ``in_shardings`` raise, and runs on the mesh's device (the
+    single-controller model: whole tensors on the caller's device).  The
+    reference ignores ``mesh``; so does the port."""
+    step = functools.partial(train_step, arch=arch, cfg=cfg)
+    if state_shardings is None:
+        return step
+    device = shardspecs.tree_device(state_shardings)
+
+    def sharded_step(state: dict, batch: dict):
+        shardspecs.check_tree(interop.meta_tree(interop.train_state_leaves(state)), state_shardings, "state")
+        if batch_shardings is not None:
+            shardspecs.check_tree(batch, batch_shardings, "batch")
+        if shardspecs.canonical_device(state["step"].device) != device:
+            raise ValueError(f"the state lies on {state['step'].device}, its shardings on {device}: "
+                             "place it there first (checkpoint.ckpt.restore takes shardings)")
+        return step(state, {k: v.to(device) for k, v in batch.items()})
+
+    return sharded_step

@@ -101,14 +101,25 @@ def test_plain_hash_rank_matches_reference_kernel(p, hash_bits):
     np.testing.assert_array_equal(rank.numpy(), np.asarray(rrank))
 
 
-def test_hash_rank_wrapper_validates_items():
+def test_hash_rank_wrapper_validates_items(monkeypatch):
     cfg = HLLConfig(p=8)
     with pytest.raises(TypeError, match="int32 or uint32"):
         port_kernel.hash_rank(torch.zeros(4, dtype=torch.float32), cfg)
-    # a tensor on a device that is neither the CPU nor a card is refused,
-    # never run through the plain version
+    # a tensor on a device that is neither the CPU nor a card is never run
+    # through the plain version: a meta tensor (the op analysis's) gets empty
+    # outputs of the kernel's shapes and launches nothing; any other device
+    # meets the CUDA gate, which refuses it
+    def plain(*args):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(port_kernel, "hash_rank_plain", plain)
+    launches = port_kernel.hash_rank.launches
+    idx, rank = port_kernel.hash_rank(torch.zeros(4, dtype=torch.int32, device="meta"), cfg)
+    assert (idx.device.type, idx.shape, idx.dtype) == ("meta", (4,), torch.int32)
+    assert (rank.device.type, rank.shape, rank.dtype) == ("meta", (4,), torch.int32)
+    assert port_kernel.hash_rank.launches == launches
     with pytest.raises(ValueError, match="CUDA tensors"):
-        port_kernel.hash_rank(torch.zeros(4, dtype=torch.int32, device="meta"), cfg)
+        port_kernel._build.require_cuda(torch.zeros(4, dtype=torch.int32, device="meta"))
 
 
 @pytest.mark.gpu
