@@ -13,12 +13,14 @@ Distributions:
   * ``unique``  -- globally unique ids (sketch stress)
 
 ``unique`` and ``uniform`` are integer arithmetic and bit-identical to the
-reference.  ``zipf`` rounds a float32 ``exp`` down to a token: where
-``exp(u * ln V)`` lies within an ulp or two of an integer, another
+reference.  ``zipf`` rounds a float32 ``exp`` down to a token, and another
 implementation of ``exp`` (XLA's, ATen's on the CPU, the card's ``expf``)
-can land on the other side of it, so a few tokens in 10^5 differ by one
-between the packages and between devices (ROADMAP C.3; the tests state
-the count).
+may return the neighbouring float32: below 2^23 that moves a token by one
+where ``exp(u * ln V)`` lies within an ulp or two of an integer; above
+2^23, where every float32 is an integer, it moves the token by its
+value's ulp (up to 128 below 2^31).  So a few tokens in 10^5 differ
+between the packages and between devices at a vocab of 49,152, and a few
+in 100 at 2^31 - 1 (ROADMAP C.3; the tests state the count).
 """
 
 from __future__ import annotations

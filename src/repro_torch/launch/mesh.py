@@ -83,6 +83,15 @@ def make_auto_mesh(shape, axes, devices: Optional[Sequence] = None) -> Mesh:
     return Mesh(tuple(shape), tuple(axes), tuple(devices))
 
 
+def local_devices(device=None) -> Tuple[torch.device, ...]:
+    """The process's devices of ``device``'s kind (the card by default), as
+    ``jax.devices()`` lists them: every visible card, or the one CPU."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    return (device,)
+
+
 def make_production_mesh(*, multi_pod: bool = False, tp: int = 16, devices: Optional[Sequence] = None) -> Mesh:
     """The (256 // tp, tp) mesh on ("data", "model"), or with ``multi_pod``
     the (2, 256 // tp, tp) mesh on ("pod", "data", "model").  ``tp`` other

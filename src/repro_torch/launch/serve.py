@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_arch
-from repro_torch.launch.mesh import Mesh, make_auto_mesh
+from repro_torch.launch.mesh import Mesh, local_devices, make_auto_mesh
 from repro_torch.models import transformer
 from repro_torch.obs import metrics, tracing
 from repro_torch.obs.format import (
@@ -133,9 +133,8 @@ def _prompts(args, arch, device) -> torch.Tensor:
 def _data_mesh(device: torch.device) -> Mesh:
     """A ("data",) mesh over the process's devices of ``device``'s kind:
     every visible card, or the one CPU."""
-    if device.type == "cuda":
-        return make_auto_mesh((torch.cuda.device_count(),), ("data",))
-    return make_auto_mesh((1,), ("data",), [device])
+    devices = local_devices(device)
+    return make_auto_mesh((len(devices),), ("data",), devices)
 
 
 def _sync(device: torch.device) -> None:

@@ -6,12 +6,13 @@
   and one epoch stream through a HybridBank and a WindowedBank.
 * ``chip_smoke.py``'s phases (kernels, stream, bank, hybrid, window,
   countmin, cm_window, board, serve, launch, obs, placement, attn_serve,
-  family_serve) rehearsed at a tiny size on the CPU (serve and launch: the
-  reduced RWKV6-3B; attn_serve: the reduced TinyLlama-1.1B; family_serve:
-  the reduced olmoe-1b-7b, mixtral-8x7b and recurrentgemma-9b), where every
-  kernel wrapper runs its plain version.
-* ``import repro_torch``, its model and serve modules and ``import
-  chip_smoke`` pull in no ``jax`` and nothing of ``repro``.
+  family_serve, train, examples) rehearsed at a tiny size on the CPU
+  (serve and launch: the reduced RWKV6-3B; attn_serve: the reduced
+  TinyLlama-1.1B; family_serve: the reduced olmoe-1b-7b, mixtral-8x7b and
+  recurrentgemma-9b; examples: the five examples at small flags), where
+  every kernel wrapper runs its plain version.
+* Every module of ``repro_torch``, ``chip_smoke`` and the five
+  ``examples_torch`` files pull in no ``jax`` and nothing of ``repro``.
 """
 
 import os
@@ -224,6 +225,36 @@ def test_chip_smoke_train_phase_rehearses_on_the_cpu(tmp_path):
     assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
 
 
+def test_chip_smoke_examples_phase_rehearses_on_the_cpu(monkeypatch):
+    import tempfile
+
+    made = []
+    mkdtemp = tempfile.mkdtemp
+    monkeypatch.setattr(tempfile, "mkdtemp", lambda **kw: made.append(mkdtemp(**kw)) or made[-1])
+    reset_launches()
+    out = chip_smoke.phase_examples(
+        "cpu", stream_flags=("--chunks", "2", "--chunk-items", "65536", "--p", "12"), quick_items=100_000,
+        serve_flags=("--requests", "2", "--prompt-len", "64", "--gen-len", "4"), train_steps=30,
+        train_small=("--batch", "2", "--seq", "16"), resume=(2, 1, 4), full=("--steps", "2", "--ckpt-every", "2"),
+        elastic=(2, 4))
+    runs = out["stream_cardinality"]["runs"]
+    assert set(runs) == set(chip_smoke.EXAMPLE_STREAM_RUNS)
+    assert all(row["equal_to_torch_backend"] and row["streamed"] == 2 * 65536 for row in runs.values())
+    assert runs["unique"]["sigmas"] <= 4
+    zipf = out["stream_cardinality"]["zipf_card_vs_cpu"]
+    assert zipf["differing"] == zipf["exp_differ_rate"] == 0 and zipf["tokens"] == 2 * 65536
+    assert out["quickstart"]["top8"] == list(range(8)) and out["quickstart"]["sigmas"] <= 4
+    assert out["serve_lm"]["rwkv6-3b"]["items_seen"] == {"request_ids": 2, "prompt_tokens": 128,
+                                                         "generated_tokens": 8}
+    train = out["train_lm"]
+    assert train["defaults"]["last_loss"] < train["defaults"]["first_loss"] and train["resume"]["resumed"]
+    assert train["full"]["steps"] == 2 and train["full"]["sigmas"] <= 4
+    assert out["elastic_rescale"]["step"] == 4 and out["elastic_rescale"]["registers_equal"]
+    # every checkpoint directory the phase made is gone; on the CPU no launch counts
+    assert len(made) == 4 and not any(os.path.exists(d) for d in made)
+    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+
+
 def test_chip_smoke_zipf_flip_rule_catches_a_flip_off_a_boundary():
     from repro_torch.data.pipeline import DataConfig, batch_at_step, zipf_exponent
 
@@ -303,19 +334,17 @@ def test_profile_busy_time_counts_each_kernel_once():
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
+    # every module of the port, chip_smoke.py and the port's examples
+    # (importing an example does not run it)
     code = (
-        "import sys, repro_torch, repro_torch.interop, repro_torch.kernels, chip_smoke\n"
-        "import repro_torch.sketch.sparse, repro_torch.sketch.window, repro_torch.sketch.countmin\n"
-        "import repro_torch.telemetry, repro_torch.configs, repro_torch.models.rwkv6\n"
-        "import repro_torch.models.transformer, repro_torch.models.registry, repro_torch.serve.engine\n"
-        "import repro_torch.obs, repro_torch.serve.coalesce, repro_torch.launch.serve\n"
-        "import repro_torch.launch.mesh, repro_torch.models.attention, repro_torch.serve.kvquant\n"
-        "import repro_torch.serve.scheduler, repro_torch.sketch.dispatch\n"
-        "import repro_torch.models.moe, repro_torch.models.rglru\n"
-        "import repro_torch.data.pipeline, repro_torch.optim.adamw, repro_torch.train.step\n"
-        "import repro_torch.train.loop, repro_torch.train.watchdog, repro_torch.checkpoint.ckpt\n"
-        "import repro_torch.launch.train\n"
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "names += ['chip_smoke', 'examples_torch'] + ['examples_torch.' + n for n in\n"
+        "          ('quickstart', 'stream_cardinality', 'serve_lm', 'train_lm', 'elastic_rescale')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "repro_torch.kernels.wrappers()\n"
+        "assert len(names) > 80, len(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
