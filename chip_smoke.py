@@ -3797,13 +3797,15 @@ def _device_entries(averages) -> list:
     """The card's own entries of a profiler's ``key_averages()``: kernels,
     copies and fills.  An aten op reports the device time of the kernels it
     launched as its own self time too, so a sum over every entry counts each
-    such kernel twice (and gave idle shares below 0); so does the step
-    annotation of a profiler schedule (``ProfilerStep*``) on the card's
-    timeline."""
+    such kernel twice (and gave idle shares below 0); so does every range
+    on the card's timeline that only spans other work: the step annotation
+    of a profiler schedule (``ProfilerStep*``) and each ``record_function``
+    range, such as the port's spans and seams while the profiler records
+    (``is_user_annotation``)."""
     from torch.autograd import DeviceType
 
     return [e for e in averages if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep")]
+            and not e.key.startswith("ProfilerStep") and not getattr(e, "is_user_annotation", False)]
 
 
 def phase_profile(device, steps: int = 4, n: int = 1 << 22, rows: int = BANK_ROWS,

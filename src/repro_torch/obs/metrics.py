@@ -24,6 +24,11 @@ every hot seam:
 
 Seam seconds are host dispatch wall time: a seam never synchronizes with
 the card, so a kernel's own time is not in them unless the caller waits.
+While ``torch.profiler`` records, a seam also opens a ``record_function``
+range of its name (:func:`profiling`): the range lands in the profiler's
+trace as a ``user_annotation`` on the device trace's clock, and the
+profiler's correlation ids tie each launch inside it to the card's work,
+so a profile reads the seam's device time as well.
 """
 
 from __future__ import annotations
@@ -37,12 +42,15 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
 
 __all__ = [
     "enable",
     "disable",
     "enabled",
     "recording",
+    "profiling",
     "inc",
     "gauge",
     "observe",
@@ -171,6 +179,17 @@ def recording() -> bool:
     return _ENABLED and not torch.compiler.is_compiling()
 
 
+def profiling() -> bool:
+    """True when a span or seam should also open a profiler range.
+
+    The profiler's own module flag short-circuits first, so with no
+    ``torch.profiler`` recording this is one attribute test; while
+    ``torch.compile`` traces, no range is opened (trace hygiene, as
+    :func:`recording`).
+    """
+    return _autograd_profiler._is_profiler_enabled and not torch.compiler.is_compiling()
+
+
 def reset() -> None:
     """Clear every counter/gauge/histogram (enabled flag untouched)."""
     with _LOCK:
@@ -237,21 +256,26 @@ _NULL = _NullTimer()
 
 
 class _Timer:
-    __slots__ = ("_counter", "_hist", "_trace", "_t0", "elapsed_s")
+    __slots__ = ("_counter", "_hist", "_trace", "_range", "_t0", "elapsed_s")
 
-    def __init__(self, counter, hist, trace):
+    def __init__(self, counter, hist, trace, profiler_range=None):
         self._counter = counter
         self._hist = hist
         self._trace = trace
+        self._range = profiler_range
         self.elapsed_s = 0.0
 
     def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         dur = time.perf_counter() - self._t0
         self.elapsed_s = dur
+        if self._range is not None:
+            self._range.__exit__(*exc)
         if self._counter is not None or self._hist is not None:
             with _LOCK:
                 if self._counter is not None:
@@ -277,22 +301,27 @@ def seam(axis: str, backend: str) -> "_Timer":
     """Timer for one dispatch seam: ``dispatch.{axis}.{backend}``.
 
     Records a ``.calls`` counter and a ``.seconds`` histogram when metrics
-    are enabled, and a Chrome-trace event while a trace capture is active
-    — both gated off while ``torch.compile`` traces.  Seconds are host
+    are enabled, a Chrome-trace event while a trace capture is active, and
+    a profiler range ``{axis}[{backend}]`` while ``torch.profiler`` records
+    — all gated off while ``torch.compile`` traces.  Seconds are host
     dispatch wall time (a kernel's first launch includes its build; device
-    completion is excluded unless the caller synchronizes).
+    completion is excluded unless the caller synchronizes); the profiler
+    range ties the launches inside it to their device time.
     """
     live_m = _ENABLED
     live_t = _trace_active()
-    if not (live_m or live_t):
+    live_p = _autograd_profiler._is_profiler_enabled
+    if not (live_m or live_t or live_p):
         return _NULL
     if torch.compiler.is_compiling():
         return _NULL
     key = f"dispatch.{axis}.{backend}"
+    name = f"{axis}[{backend}]"
     return _Timer(
         key + ".calls" if live_m else None,
         key + ".seconds" if live_m else None,
-        f"{axis}[{backend}]" if live_t else None,
+        name if live_t else None,
+        record_function(name) if live_p else None,
     )
 
 
@@ -300,14 +329,15 @@ def wrap_backend(axis: str, name: str, fn: Callable) -> Callable:
     """Wrap a registry backend so every real dispatch is counted + timed.
 
     Applied once at registration (``repro_torch.sketch.plan.register_*``), so
-    the per-dispatch cost when disabled is one extra frame + flag check.
+    the per-dispatch cost when disabled is one extra frame and three flag
+    tests (metrics, the trace capture, the profiler).
     Empty-stream short-circuits never reach the backend, so they are
     never counted — the spy-backend contract (tests/test_torch_obs.py).
     """
 
     @functools.wraps(fn)
     def dispatch(*args, **kwargs):
-        if not (_ENABLED or _trace_active()):
+        if not (_ENABLED or _trace_active() or _autograd_profiler._is_profiler_enabled):
             return fn(*args, **kwargs)
         with seam(axis, name):
             return fn(*args, **kwargs)

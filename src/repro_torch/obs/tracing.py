@@ -13,12 +13,26 @@ no bookkeeping — Perfetto reconstructs the stack from overlapping
 ``chrome://tracing`` load directly.  The event buffer is host-side only;
 span bodies that run while ``torch.compile`` traces record nothing (same
 hygiene gate as the metrics registry, DESIGN.md §15).  Port of
-``repro/obs/tracing.py`` with the same event fields.  A span's time is host
-wall time: a caller that wants the card's time in it synchronizes inside.
+``repro/obs/tracing.py`` with the same event fields.
+
+A span's ``elapsed_s`` and its capture event are host wall time
+(``perf_counter``).  While ``torch.profiler`` records, a span (and every
+dispatch seam) also opens a ``record_function`` range of its name: the
+range lands in the profiler's trace as a ``user_annotation`` on the device
+trace's clock, and the profiler's correlation ids tie each launch inside
+it to the card's kernels, copies and fills, so a profile reads the span's
+device time and its waits on the card.  :func:`region` is that range
+alone, for the sketch path's layer boundaries (``sketch.update``,
+``sketch.bank.update_many``, ``sketch.bank.counters``,
+``sketch.bank.estimate_many``, ``sketch.estimate.histogram``,
+``sketch.estimate.finalize``): it costs one flag test with no profiler
+recording and adds no event to the capture, which keeps the reference's
+events.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -31,6 +45,7 @@ from repro_torch.obs import metrics as _metrics
 
 __all__ = [
     "span",
+    "region",
     "Stopwatch",
     "start_trace",
     "stop_trace",
@@ -95,10 +110,11 @@ class span:
     ``with span("prefill") as t: ...`` then read ``t.elapsed_s``.  Pass
     ``metric="serve.request.seconds"`` to also feed a metrics histogram
     (no-op unless metrics are enabled); extra keyword arguments land in
-    the event's ``args`` payload.
+    the event's ``args`` payload.  While ``torch.profiler`` records, the
+    body also runs inside a profiler range ``name`` (outside the timing).
     """
 
-    __slots__ = ("name", "metric", "args", "elapsed_s", "_t0")
+    __slots__ = ("name", "metric", "args", "elapsed_s", "_t0", "_range")
 
     def __init__(self, name: str, *, metric: Optional[str] = None, **args):
         self.name = name
@@ -107,15 +123,35 @@ class span:
         self.elapsed_s = 0.0
 
     def __enter__(self) -> "span":
+        self._range = _metrics.record_function(self.name) if _metrics.profiling() else None
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         self.elapsed_s = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
         _emit(self.name, self._t0, self.elapsed_s, self.args)
         if self.metric is not None:
             _metrics.observe(self.metric, self.elapsed_s)
         return False
+
+
+# region's do-nothing context: a nullcontext, which torch.compile enters
+# without breaking the graph
+_OFF = contextlib.nullcontext()
+
+
+def region(name: str):
+    """A profiler range ``name`` around a ``with`` body while
+    ``torch.profiler`` records (not while ``torch.compile`` traces), else
+    a shared do-nothing context: a span that reaches the profiler only,
+    with no ``elapsed_s`` and no capture event."""
+    if _metrics.profiling():
+        return _metrics.record_function(name)
+    return _OFF
 
 
 class Stopwatch:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing
 from repro_torch.sketch import hll, u64
 from repro_torch.sketch.carrier import HyperLogLog
 from repro_torch.sketch.dispatch import mesh_fold, row_shard_apply, row_shard_fold
@@ -251,15 +252,14 @@ class SketchBank:
         flat_keys, flat_items = _flat_keys_items(keys, items, self.device)
         if flat_items.shape[0] == 0 or len(self) == 0:
             return self
-        obs_metrics.observe("bank.update_many.batch_items", flat_items.shape[0])
-        regs = update_bank_registers(self.registers, flat_keys, flat_items, self.cfg, plan)
-        # count only the observations that actually landed (dropped keys
-        # must not inflate a row's exact counter)
-        return dataclasses.replace(
-            self,
-            registers=regs,
-            n_items=_counter_add_rows(self.n_items, _routed_counts(flat_keys, len(self))),
-        )
+        with tracing.region("sketch.bank.update_many"):
+            obs_metrics.observe("bank.update_many.batch_items", flat_items.shape[0])
+            regs = update_bank_registers(self.registers, flat_keys, flat_items, self.cfg, plan)
+            # count only the observations that actually landed (dropped keys
+            # must not inflate a row's exact counter)
+            with tracing.region("sketch.bank.counters"):
+                n_items = _counter_add_rows(self.n_items, _routed_counts(flat_keys, len(self)))
+            return dataclasses.replace(self, registers=regs, n_items=n_items)
 
     def merge(self, other: "SketchBank") -> "SketchBank":
         """Row-wise Merge-buckets fold; counters add exactly."""
@@ -298,10 +298,11 @@ class SketchBank:
         """
         if len(self) == 0:
             return torch.zeros((0,), dtype=torch.float32, device=self.device)
-        name = estimator
-        if plan is not None:
-            name = estimator or plan.validate().estimator
-        return estimate_rows(self.registers, self.cfg, name, plan)
+        with tracing.region("sketch.bank.estimate_many"):
+            name = estimator
+            if plan is not None:
+                name = estimator or plan.validate().estimator
+            return estimate_rows(self.registers, self.cfg, name, plan)
 
     def estimate(self, i: int, estimator: Optional[str] = None) -> float:
         """Exact host-side estimate of one row."""

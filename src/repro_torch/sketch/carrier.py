@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import tracing
 from repro_torch.sketch import hll, setops, u64
 from repro_torch.sketch.dispatch import update_registers
 from repro_torch.sketch.hll import HLLConfig
@@ -87,12 +88,13 @@ class HyperLogLog:
         flat = hll.as_items(items, self.device)
         if flat.numel() == 0:
             return self
-        regs = update_registers(self.registers, flat, self.cfg, plan)
-        return dataclasses.replace(
-            self,
-            registers=regs,
-            n_items=u64.add(self.n_items, flat.numel()),
-        )
+        with tracing.region("sketch.update"):
+            regs = update_registers(self.registers, flat, self.cfg, plan)
+            return dataclasses.replace(
+                self,
+                registers=regs,
+                n_items=u64.add(self.n_items, flat.numel()),
+            )
 
     def merge(self, other: "HyperLogLog") -> "HyperLogLog":
         """Merge-buckets fold: element-wise max; counters add exactly."""

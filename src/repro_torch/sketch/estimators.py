@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing
 from repro_torch.sketch.hll import HLLConfig, alpha
 
 # alpha_infinity = 1 / (2 ln 2): the bias constant of Ertl's raw estimator.
@@ -459,8 +460,10 @@ def estimate(
 def _estimate_device(
     registers: torch.Tensor, cfg: HLLConfig, estimator: str
 ) -> torch.Tensor:
-    counts = register_histogram(registers, cfg).to(torch.float32)
-    return get_estimator(estimator).device(counts, cfg)
+    with tracing.region("sketch.estimate.histogram"):
+        counts = register_histogram(registers, cfg).to(torch.float32)
+    with tracing.region("sketch.estimate.finalize"):
+        return get_estimator(estimator).device(counts, cfg)
 
 
 def estimate_device(

@@ -618,3 +618,165 @@ def test_estimate_seams_count_like_reference():
     theirs, mine = snaps
     assert_snapshots_agree(mine, theirs)
     assert mine["counters"]["dispatch.estimate.ertl_improved.calls"] == 1
+
+
+# ----------------------------------------------------------------------------
+# spans in torch.profiler's trace: each span, seam and sketch-path region is
+# a profiler range enclosing its body's ops; none is entered without a
+# profiler or while torch.compile traces
+# ----------------------------------------------------------------------------
+
+SKETCH_SPANS = {"sketch.bank.update_many", "bank_update[torch]", "sketch.bank.counters",
+                "sketch.bank.estimate_many", "estimate[original]", "sketch.estimate.histogram",
+                "sketch.estimate.finalize", "sketch.update", "update[torch]"}
+
+
+def _profiled(body, tmp_path):
+    """(annotations, ops) of ``body()`` run under ``torch.profiler`` (host
+    activity): [(name, start, end)] of the ``user_annotation`` and the
+    ``cpu_op`` events of its exported Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        body()
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+
+    def of(cat):
+        return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events if e.get("cat") == cat]
+
+    return of("user_annotation"), of("cpu_op")
+
+
+def _one(found, name):
+    (hit,) = [f for f in found if f[0] == name]
+    return hit
+
+
+def _inside(inner, outer) -> bool:
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def _sketch_calls():
+    """A bank tick, its read and a single-sketch update, on the torch backend."""
+    bank = _ingest(_empty())
+    bank.estimate_many("original")
+    sketch.HyperLogLog.empty(CFG, device="cpu").update(torch.arange(32, dtype=torch.int32),
+                                                       ExecutionPlan(backend="torch"))
+
+
+def test_span_and_seam_are_profiler_ranges_around_their_ops(tmp_path):
+    x = torch.arange(64, dtype=torch.float32)
+    timed = {}
+
+    def body():
+        with tracing.span("obs.body") as t:
+            x + 1
+        timed["span"] = t
+        with metrics.seam("update", "torch"):
+            x * 2
+
+    tracing.start_trace()
+    notes, ops = _profiled(body, tmp_path)
+    captured = [e["name"] for e in tracing.stop_trace()]
+    span, seam = _one(notes, "obs.body"), _one(notes, "update[torch]")
+    assert _inside(_one(ops, "aten::add"), span) and _inside(_one(ops, "aten::mul"), seam)
+    assert not _inside(_one(ops, "aten::mul"), span)
+    # what was there stays: the span's wall time, the capture, an empty registry
+    assert timed["span"].elapsed_s > 0
+    assert captured == ["obs.body", "update[torch]"]
+    assert metrics.snapshot()["counters"] == {}
+
+
+def test_sketch_path_spans_nest_in_the_profile(tmp_path):
+    notes, ops = _profiled(_sketch_calls, tmp_path)
+    assert SKETCH_SPANS <= {n[0] for n in notes}
+    tick = _one(notes, "sketch.bank.update_many")
+    backend, counters = _one(notes, "bank_update[torch]"), _one(notes, "sketch.bank.counters")
+    assert _inside(backend, tick) and _inside(counters, tick) and backend[2] <= counters[1]
+    assert any(_inside(op, counters) for op in ops if op[0] == "aten::bincount")
+    read, seam = _one(notes, "sketch.bank.estimate_many"), _one(notes, "estimate[original]")
+    hist, fin = _one(notes, "sketch.estimate.histogram"), _one(notes, "sketch.estimate.finalize")
+    assert _inside(seam, read) and _inside(hist, seam) and _inside(fin, seam) and hist[2] <= fin[1]
+    assert any(_inside(op, hist) for op in ops if op[0] == "aten::bincount")
+    assert _inside(_one(notes, "update[torch]"), _one(notes, "sketch.update"))
+
+
+def _spy_ranges(monkeypatch) -> list:
+    """The names of the profiler ranges the obs layer opens from now on."""
+    entered, real = [], metrics.record_function
+
+    def spy(name):
+        entered.append(name)
+        return real(name)
+
+    monkeypatch.setattr(metrics, "record_function", spy)
+    return entered
+
+
+def test_no_profiler_enters_no_record_function(monkeypatch, tmp_path):
+    entered = _spy_ranges(monkeypatch)
+
+    def body():
+        with tracing.span("obs.body"):
+            pass
+        with tracing.region("obs.region"):
+            pass
+        _sketch_calls()
+
+    body()
+    # neither the metrics registry nor a capture opens a profiler range
+    metrics.enable()
+    tracing.start_trace()
+    body()
+    tracing.stop_trace()
+    metrics.disable()
+    assert entered == []
+    assert tracing.region("obs.region") is tracing.region("obs.other")  # one shared null context
+    _profiled(body, tmp_path)
+    assert set(entered) == SKETCH_SPANS | {"obs.body", "obs.region"}
+
+
+def test_nothing_is_entered_under_compile(monkeypatch):
+    """A region and a wrapped backend in a compiled caller open no range,
+    in the trace or in the replays.  (A span's ``perf_counter`` breaks the
+    graph, so dynamo runs a caller of it as plain Python, which the span
+    then times and marks like any other.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    entered = _spy_ranges(monkeypatch)
+    wrapped = get_bank_backend("torch")
+    plan = ExecutionPlan(backend="torch")
+    regs = _empty().registers
+    keys = torch.arange(8, dtype=torch.int32) % 4
+    items = torch.arange(8, dtype=torch.int32)
+
+    def f(x):
+        with tracing.region("compiled.region"):
+            return x + 1
+
+    g = torch.compile(f, backend="eager")
+    h = torch.compile(lambda r, k, x: wrapped(r, k, x, CFG, plan), backend="eager")
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):  # traces, then replays the graph
+            g(torch.arange(3))
+            h(regs, keys, items)
+        assert entered == []
+        f(torch.arange(3))  # ...while the same code run eagerly opens each range
+        wrapped(regs, keys, items, CFG, plan)
+    assert entered == ["compiled.region", "bank_update[torch]"]
+
+
+def test_the_profiler_leaves_the_capture_as_the_reference_has_it(tmp_path):
+    """The sketch-path regions reach the profiler only: a capture taken
+    under the profiler holds the same events as one taken without it."""
+    place = lambda make, *a, **k: make(*a, **k, device="cpu")
+    tracing.start_trace()
+    _op_sequence(sketch, "torch", place)
+    plain = [e["name"] for e in tracing.stop_trace()]
+    tracing.start_trace()
+    notes, _ = _profiled(lambda: _op_sequence(sketch, "torch", place), tmp_path)
+    profiled = [e["name"] for e in tracing.stop_trace()]
+    assert profiled == plain
+    assert {"sketch.bank.update_many", "sketch.bank.counters"} <= {n[0] for n in notes}

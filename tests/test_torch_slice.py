@@ -333,6 +333,24 @@ def test_profile_busy_time_counts_each_kernel_once():
     assert [e.key for e in chip_smoke._device_entries(entries)] == ["kernelHistogram1D", "Memcpy DtoD"]
 
 
+def test_profile_busy_time_leaves_out_profiler_ranges():
+    # a record_function range (a span or seam of the port while the profiler
+    # records) lies on the card's timeline with its whole length as device
+    # time; only the kernels inside it count
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def entry(key, device_us, annotation):
+        return SimpleNamespace(key=key, device_type=DeviceType.CUDA, self_device_time_total=device_us,
+                               is_user_annotation=annotation)
+
+    entries = [entry("sketch.bank.update_many", 900, True), entry("bank_update[cuda]", 400, True),
+               entry("ProfilerStep#2", 1000, True), entry("bank_scatter_kernel", 380, False),
+               entry("kernelHistogram1D", 118, False)]
+    assert [e.key for e in chip_smoke._device_entries(entries)] == ["bank_scatter_kernel", "kernelHistogram1D"]
+
+
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     # every module of the port, chip_smoke.py and the port's examples
     # (importing an example does not run it)
