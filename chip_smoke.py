@@ -13,7 +13,7 @@ checkout's, so that two trees are measured by the same code: run parent,
 change, change, parent in one call to compare them.  Phases, each of which
 raises (exit code 1) when it fails:
 
-  build    compile the eleven kernels (nine sources) from
+  build    compile the twelve kernels (ten sources) from
            src/repro_torch/kernels/csrc with nvcc, one process per source,
            all at once; print the seconds and ptxas's register,
            shared-memory and spill report.
@@ -60,7 +60,10 @@ raises (exit code 1) when it fails:
            200 (the factors underflow) and with an all-zero dy: every
            gradient finite and within 1e-5 of its largest magnitude of the
            float32 plain version, both printed against the float64 plain
-           version; its ptxas report and the blocks an SM holds.
+           version; its ptxas report and the blocks an SM holds;
+           bank_row_count on Zipf(1.2) keys, dropped keys, one row and
+           none, onto limbs near 2^32 and 2^64, at 1024 rows, at the path
+           boundary and at HybridBank's chunk (16384 rows, 909,312 keys).
   stream   the paper's NIC deployment (Tab. IV), lengthened: 2^26 uint32
            items in 16 chunks of 2^22 through ``update_registers`` under
            "cuda" and "cuda_pipelined" (k = 8), for (p, H) in
@@ -381,6 +384,10 @@ from repro_torch.kernels import bank_scatter as bank_module  # noqa: E402
 from repro_torch.kernels import sparse_scatter as sparse_module  # noqa: E402
 from repro_torch.kernels import cm_scatter as cm_module  # noqa: E402
 from repro_torch.kernels import hll_fused as hll_module  # noqa: E402
+try:  # a tree from before the counters' kernel (--src) has no bank_count
+    from repro_torch.kernels import bank_count as count_module  # noqa: E402
+except ImportError:
+    count_module = None
 from repro_torch.kernels.rwkv_intra import (  # noqa: E402
     rwkv_intra,
     rwkv_intra_bwd,
@@ -408,6 +415,7 @@ from repro_torch.sketch import (  # noqa: E402
     WindowedCountMinBank,
     reference_plan,
 )
+from repro_torch.sketch import u64  # noqa: E402
 from repro_torch.sketch.countmin import _label_update, cm_hash_index  # noqa: E402
 from repro_torch.sketch.murmur3 import murmur3_32_py, murmur3_64_py  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
@@ -427,6 +435,8 @@ PIPELINES = 8
 BANK_ROWS = 1024
 BANK_TICKS = 8
 BANK_TICK_ITEMS = 1 << 22
+COUNT_TICK_KEYS = 1 << 25  # the fleet tick of perfbench's tenant_fleet cells
+COUNT_LARGE_ROWS = 1 << 20  # a bank past bank_row_count's shared path
 ZIPF_A = 1.2  # tenant skew of benchmarks/bench_serve.py
 HYBRID_ROWS = 16384  # benchmarks/bench_sparse.py, acceptance size
 HYBRID_ITEMS_PER_ROW = 222
@@ -499,10 +509,16 @@ KERNEL_SOURCES = {
     # (time_mix_chunked) with jax.grad
     "rwkv_intra_bwd": ("src/repro_torch/kernels/csrc/rwkv_intra_bwd.cu",
                        "src/repro/models/rwkv6.py:159 (jax.grad of time_mix_chunked's chunk math)"),
+    # no Pallas kernel: the reference counts a tick's keys with jnp.bincount
+    "bank_row_count": ("src/repro_torch/kernels/csrc/bank_count.cu",
+                       "src/repro/sketch/bank.py:277 (jnp.bincount of the exact row counters)"),
 }
 # timed in rounds, min/median/max printed
 SPREAD_KERNELS = ("cm_scatter_add", "hll_update_fused", "bank_scatter_max", "bucket_fold", "rwkv_intra_bwd")
 SPREAD_ROUNDS = 5
+# whose plain and library calls read back to the host (torch.bincount): timed
+# by the synchronized wall clock (_wall_ms)
+HOST_READS = ("bank_row_count",)
 PROFILE_ATTEMPTS = 3  # recordings of a profile step before its partial one is reported
 # profiled only when --profile names them: a full-width train step launches
 # ~10^5 kernels, and their recording took 399 s of a call (NVIDIA H100 80GB
@@ -770,6 +786,47 @@ def _bank_cases(device, n: int, rows: int, rng: np.random.Generator) -> float:
     return err
 
 
+def _row_count_cases(device, n: int, rows: int, hybrid_rows: int, rng: np.random.Generator) -> float:
+    """bank_row_count on Zipf(1.2) keys and its hard streams -- keys -1, B
+    and beyond dropped, every key in one row, every key dropped -- onto
+    limbs that carry across 2^32 or wrap at 2^64, at the full length, 3 keys
+    and keys off a 16-byte boundary: n + 3 keys over B rows and over B at
+    the path boundary (SHARED_ROWS and one more), and HybridBank's chunk
+    (``hybrid_rows`` rows, a quarter of HYBRID_ITEMS_PER_ROW keys a row,
+    also on its own traffic, 10 % of the rows taking 90 %); the input limbs
+    unchanged after every call.  Prints the path each shape took."""
+    err, paths = 0.0, {}
+    mask32, mask64 = np.uint64((1 << 32) - 1), np.uint64((1 << 64) - 1)
+    chunk = hybrid_rows * HYBRID_ITEMS_PER_ROW // HYBRID_CHUNKS
+    shapes = [(rows, n + 3), (count_module.SHARED_ROWS, n + 3), (count_module.SHARED_ROWS + 1, n + 3),
+              (hybrid_rows, chunk)]
+    zipf = rng.zipf(ZIPF_A, max(length for _, length in shapes)) - 1
+    for b_rows, length in shapes:
+        paths[f"B={b_rows}, n={length}"] = count_module.bank_count_path(b_rows)
+        foreign = rng.integers(-3, b_rows + 3, length).astype(np.int32)
+        foreign[:2] = [-1, b_rows]
+        streams = {"zipf": (zipf[:length] % b_rows).astype(np.int32), "foreign keys": foreign,
+                   "one row": np.full(length, b_rows - 1, np.int32),
+                   "all dropped": np.where(foreign < 0, foreign, foreign + b_rows).astype(np.int32)}
+        if (b_rows, length) == (hybrid_rows, chunk):
+            streams["hybrid traffic"] = _zipf_traffic(hybrid_rows, chunk, rng)[0]
+        spread = np.arange(b_rows, dtype=np.uint64)
+        counters = {"random": rng.integers(0, 1 << 40, b_rows, dtype=np.uint64),
+                    "near 2^32": mask32 - spread % np.uint64(3), "near 2^64": mask64 - spread % np.uint64(5)}
+        for cname, values in counters.items():
+            limbs = u64.from_numpy(values, device)
+            before = limbs.clone()
+            for sname, keys in streams.items():
+                k_t = torch.from_numpy(keys).to(device)
+                for what, kk in ((f"n={length}", k_t), ("offset 1", k_t[1:]), ("n=3", k_t[:3])):
+                    got = count_module.bank_row_count(limbs, kk)
+                    err = max(err, _max_abs_err(got, count_module.bank_row_count_plain(limbs, kk),
+                                                f"bank_row_count B={b_rows} {sname} {what}, counters {cname}"))
+            _max_abs_err(limbs, before, f"bank_row_count B={b_rows}, counters {cname}: the input limbs")
+    print(f"[kernels] bank_row_count paths: {json.dumps(paths)}")
+    return err
+
+
 def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
                   hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, cm_cells: int = CM_CELL_CAP,
                   intra_shapes=INTRA_SHAPES, intra_strong=INTRA_STRONG, intra_bwd_shapes=INTRA_BWD_SHAPES,
@@ -871,6 +928,7 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
             ),
         )
     errs["bank_scatter_max"] = max(errs["bank_scatter_max"], _bank_cases(device, n, rows, rng))
+    errs["bank_row_count"] = _row_count_cases(device, n, rows, hybrid_rows, rng)
     for p in (4, 8, 12, 16):
         m = 1 << p
         srows = hybrid_rows if p <= 12 else rows
@@ -1181,6 +1239,8 @@ def phase_hybrid(device, rows: int = HYBRID_ROWS, items_per_row: int = HYBRID_IT
         banks[name] = bank
     bank = banks["cuda"]
     _same_hybrid(bank, banks["torch"], "hybrid cuda vs torch")
+    if not np.array_equal(bank.counts, np.bincount(keys, minlength=rows).astype(np.uint64)):
+        raise AssertionError("hybrid counters are not the exact per-row counts")
     dense = SketchBank.empty(rows, cfg, device)
     for k, x in zip(k_chunks, x_chunks):
         dense = dense.update_many(k, x, ExecutionPlan(backend="cuda"))
@@ -3557,6 +3617,22 @@ def _time_ms(fn, args_list, iters: int = 50, warmup: int = 3) -> tuple:
     return device_ms, (time.perf_counter() - t0) * 1e3 / iters
 
 
+def _wall_ms(fn, args_list, iters: int = 10, warmup: int = 2) -> tuple:
+    """(ms, ms) per call, both the synchronized wall clock over ``iters``
+    calls: for a callable that reads back to the host (``torch.bincount``
+    reads its input's min and max), which the card cannot run ahead of the
+    host as ``_time_ms`` needs."""
+    for i in range(warmup):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    return ms, ms
+
+
 def intra_flops(g: int, c: int, n: int) -> int:
     """float32 operations of rwkv_intra on (G, C, N) cells: per pair s < t and
     n a subtract, two multiplies and an add (the exp not counted); per (t, n)
@@ -3619,6 +3695,10 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
     # rwkv_intra_bwd at the training grid: 2 sequences x 16 chunks x 40 heads
     bg, bc, bn = intra_bwd_shape
     bwd_args = _intra_bwd_inputs(bg, bc, bn, gen, device)
+    # bank_row_count at the fleet tick's shape: 2^25 Zipf(1.2) keys over the
+    # 1024 rows, 2 streams of 128 MiB rotated
+    count_streams = [(_zipf_ranks(COUNT_TICK_KEYS, ZIPF_A, rows, gen).to(torch.int32),) for _ in range(2)]
+    count_limbs = u64.from_numpy(rng.integers(0, 1 << 40, rows, dtype=np.uint64), device)
     calls = {
         "hash_rank": (
             (lambda x: hash_rank(x, cfg), streams),
@@ -3692,6 +3772,14 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
             4 * (11 * bg * bc * bn + 2 * bg * bn),
         ),
     }
+    if count_module is not None:
+        calls["bank_row_count"] = (
+            (lambda k: count_module.bank_row_count(count_limbs, k), count_streams),
+            (lambda k: count_module.bank_row_count_plain(count_limbs, k), count_streams),
+            # the counts half only: one bincount of keys that are all valid
+            (lambda k: torch.bincount(k, minlength=rows), count_streams),
+            4 * COUNT_TICK_KEYS + 32 * rows,
+        )
     # float32 operations where the guide's peak table has a rate for them;
     # the sketch kernels' integer work has none, so bytes bound them
     flops = {"rwkv_intra": intra_flops(ig, ic, inn), "rwkv_intra_bwd": intra_bwd_flops(bg, bc, bn)}
@@ -3707,14 +3795,14 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
             rounds = [ms] + [_time_ms(*kernel)[0] for _ in range(SPREAD_ROUNDS - 1)]
             spread = {"min": min(rounds), "median": statistics.median(rounds), "max": max(rounds),
                       "rounds": rounds}
-        plain_ms, plain_host_ms = _time_ms(*plain, iters=3)
+        plain_ms, plain_host_ms = (_wall_ms if name in HOST_READS else _time_ms)(*plain, iters=3)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops.get(name, 0) / F32_FLOPS_PER_S * 1e3
         out[name] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "library_ms": _time_ms(*library, iters=10)[0] if library else None,
+            "library_ms": (_wall_ms if name in HOST_READS else _time_ms)(*library, iters=10)[0] if library else None,
             "host_ms": host_ms, "plain_host_ms": plain_host_ms,
         }
         if spread:
@@ -3739,10 +3827,39 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
             lambda k, x: cm_module.cm_scatter_add_global(cm_bank, k, x, cmc), cm_streams)[0]
     if (only is None or "bank_scatter_max" in only) and hasattr(bank_module, "bank_scatter_max_global"):
         variants.update(_bank_path_times(device, rows, n, rng))
+    if (only is None or "bank_row_count" in only) and count_module is not None:
+        variants.update(_row_count_times(device, rows, hybrid_rows, count_streams, rng))
     if variants:
         print(f"[timing] variants, device ms: {json.dumps(variants)}")
         out["variants"] = variants
     return out
+
+
+def _row_count_times(device, rows: int, hybrid_rows: int, tick_streams: list, rng: np.random.Generator) -> dict:
+    """bank_row_count's paths and its plain version, device ms, at the fleet
+    tick's shape (``tick_streams``), at HybridBank's (16384 rows,
+    bench_sparse's chunk of 909,312 keys, 10 % of the rows taking 90 %, 4
+    streams rotated) and at a bank past the shared path: 2^20 rows and the
+    tick's 2^25 Zipf(1.2) keys, 2 streams rotated.  SHARED_ROWS = 0 sends
+    every shape to the global path."""
+    chunk = hybrid_rows * HYBRID_ITEMS_PER_ROW // HYBRID_CHUNKS
+    hybrid = [(torch.from_numpy(_zipf_traffic(hybrid_rows, chunk, rng)[0]).to(device),) for _ in range(4)]
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    large = [(_zipf_ranks(COUNT_TICK_KEYS, ZIPF_A, COUNT_LARGE_ROWS, gen).to(torch.int32),) for _ in range(2)]
+    times = {}
+    for name, b_rows, streams in (("fleet tick", rows, tick_streams), ("hybrid chunk", hybrid_rows, hybrid),
+                                  ("large bank", COUNT_LARGE_ROWS, large)):
+        limbs = u64.from_numpy(rng.integers(0, 1 << 40, b_rows, dtype=np.uint64), device)
+        shape = f"({b_rows} rows, {streams[0][0].numel()} keys)"
+        chosen = count_module.bank_count_path(b_rows)
+        for path in ("shared", "global") if chosen == "shared" else ("global",):
+            with _setting(count_module, "SHARED_ROWS", 0) if path == "global" else contextlib.nullcontext():
+                times[f"bank_row_count {path} path, {name} {shape}{' (chosen)' if path == chosen else ''}"] = (
+                    _time_ms(lambda k: count_module.bank_row_count(limbs, k), streams)[0])
+        times[f"bank_row_count plain, {name} {shape}"] = _wall_ms(
+            lambda k: count_module.bank_row_count_plain(limbs, k), streams)[0]
+        del streams
+    return times
 
 
 def bank_callers(rows: int = BANK_ROWS, n: int = BANK_TICK_ITEMS) -> dict:

@@ -14,6 +14,8 @@ One module per TPU kernel of the reference (``repro/kernels``):
   rwkv_intra.rwkv_intra             <- rwkv_intra.py::rwkv_intra
   rwkv_intra.rwkv_intra_bwd         <- jax.grad of the reference's inline
                                        chunk math (no Pallas backward)
+  bank_count.bank_row_count         <- jnp.bincount of the bank's exact row
+                                       counters (no Pallas kernel)
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises; for ``meta`` tensors (the op analysis and
@@ -43,6 +45,7 @@ KERNELS = {
     "cm_window_fold_sum": ("cm_scatter", "cm_window_fold_sum"),
     "rwkv_intra": ("rwkv_intra", "rwkv_intra"),
     "rwkv_intra_bwd": ("rwkv_intra", "rwkv_intra_bwd"),
+    "bank_row_count": ("bank_count", "bank_row_count"),
 }
 
 

@@ -72,6 +72,8 @@ __device__ __forceinline__ int32_t lane_of(const int4& q, int c) {
   return c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w;
 }
 template <typename F>
+__device__ __forceinline__ void apply(F& f, const int32_t (&v)[1]) { f(v[0]); }
+template <typename F>
 __device__ __forceinline__ void apply(F& f, const int32_t (&v)[2]) { f(v[0], v[1]); }
 template <typename F>
 __device__ __forceinline__ void apply(F& f, const int32_t (&v)[3]) { f(v[0], v[1], v[2]); }

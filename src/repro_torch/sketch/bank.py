@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels.bank_count import bank_row_count
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing
 from repro_torch.sketch import hll, u64
@@ -61,18 +62,6 @@ def _flat_keys_items(keys, items, device):
             f"must flatten to the same length"
         )
     return flat_keys, flat_items
-
-
-def _counter_add_rows(limbs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """(B, 2) int64 (hi, lo) limb pairs + (B,) non-negative counts, exact to 2^64."""
-    return u64.add(limbs, u64.limbs(counts.to(torch.int64)))
-
-
-def _routed_counts(flat_keys: torch.Tensor, rows: int) -> torch.Tensor:
-    """(rows,) int64 count of the keys in [0, rows); others are dropped."""
-    valid = (flat_keys >= 0) & (flat_keys < rows)
-    routed = torch.where(valid, flat_keys, rows).to(torch.int64)
-    return torch.bincount(routed, minlength=rows + 1)[:rows]
 
 
 # ----------------------------------------------------------------------------
@@ -258,7 +247,7 @@ class SketchBank:
             # count only the observations that actually landed (dropped keys
             # must not inflate a row's exact counter)
             with tracing.region("sketch.bank.counters"):
-                n_items = _counter_add_rows(self.n_items, _routed_counts(flat_keys, len(self)))
+                n_items = bank_row_count(self.n_items, flat_keys)
             return dataclasses.replace(self, registers=regs, n_items=n_items)
 
     def merge(self, other: "SketchBank") -> "SketchBank":

@@ -45,9 +45,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.bank_count import bank_row_count
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll, murmur3, u64
-from repro_torch.sketch.bank import _counter_add_rows, _flat_keys_items, _routed_counts
+from repro_torch.sketch.bank import _flat_keys_items
 from repro_torch.sketch.dispatch import cm_mesh_sum
 from repro_torch.sketch.plan import (
     DEFAULT_PLAN,
@@ -420,7 +421,7 @@ class CountMinBank:
             counters=counters,
             labels=labels,
             label_counts=label_counts,
-            n_items=_counter_add_rows(self.n_items, _routed_counts(flat_keys, len(self))),
+            n_items=bank_row_count(self.n_items, flat_keys),
         )
 
     def merge(self, other: "CountMinBank") -> "CountMinBank":

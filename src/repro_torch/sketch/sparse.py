@@ -56,6 +56,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.bank_count import bank_row_count
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sketch import hll, u64
 from repro_torch.sketch.bank import (
@@ -63,9 +64,7 @@ from repro_torch.sketch.bank import (
     _BANK_MAGIC,
     _ROW_COUNT,
     SketchBank,
-    _counter_add_rows,
     _flat_keys_items,
-    _routed_counts,
     estimate_rows,
     update_bank_registers,
 )
@@ -640,7 +639,7 @@ class HybridBank:
         out = dataclasses.replace(
             self,
             dense_block=new_dense,
-            n_items=_counter_add_rows(self.n_items, _routed_counts(flat_keys, rows)),
+            n_items=bank_row_count(self.n_items, flat_keys),
             pending=pending,
         )
         if out._pending_pressure():
