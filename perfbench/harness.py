@@ -3,11 +3,15 @@
 A cell names a configuration and a traffic mix; everything else is found
 by name.  The configuration file (``BENCHMARK.json``'s ``file``) names its
 ``system``, whose driver is ``systems/<system>.py`` (open a state, call the
-port, read, hand over the outputs) and whose plain reference is
-``reference/<system>.py``; the mix is ``traffic/<config>.<mix>.json``, read
-by the one generator in ``pool.py``; a per-layer metric ``<family>.<part>``
-is read by ``metrics/<family>.py``, which picks what it reads by the
-configuration's ``system``.
+port, read, hand over the outputs), whose plain reference is
+``reference/<system>.py``, whose work bytes are ``metrics/work/<system>.py``
+and whose test hooks are ``tests/faults/<system>.py``; the configuration's
+small sizes for the CPU tests are ``tests/small/<config>.json``; the mix is
+``traffic/<config>.<mix>.json``, read by the one generator in ``pool.py``;
+a per-layer metric ``<family>.<part>`` is read by ``metrics/<family>.py``
+from the traced window's spans (the harness's and the port's own).  So a
+configuration of a new system joins by new files and entries appended to
+``BENCHMARK.json`` alone.
 
 A run (``run_cell``):
 

@@ -1,0 +1,15 @@
+"""histogram_us.<part>: median device time of the estimator's register histogram, in us.
+
+From the traced window: the kernels, copies and fills launched inside each
+``sketch.estimate.histogram`` span, by the profiler's correlation ids.
+None where no such span holds a CUDA call, as on the CPU.
+"""
+
+import statistics
+
+from perfbench import trace as tracelib
+
+
+def read(record):
+    spans = tracelib.held(record.trace, "sketch.estimate.histogram")
+    return statistics.median(s.device_s for s in spans) * 1e6 if spans else None

@@ -2,8 +2,8 @@
 
 The window calls ``SketchBank.update_many`` under the default plan, one
 keyed tick a call (``hash_rank``, then ``bank_scatter_max``, and the exact
-counters' ``bincount``); a closed-loop mix reads every row's estimate to the
-host after each tick (``SketchBank.estimate_many``, then ``.cpu()``).
+counters' ``bank_row_count``); a closed-loop mix reads every row's estimate
+to the host after each tick (``SketchBank.estimate_many``, then ``.cpu()``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,7 @@
 """The generator's pools, and the reference against the port's CPU path."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,56 @@ def test_same_seed_same_pool_other_seed_other_pool(workload):
         assert not torch.equal(x["items"], z["items"])
         if "keys" in x:
             assert int(x["keys"].min()) >= 0 and int(x["keys"].max()) < cell.config["rows"]
+
+
+# sha256 of each existing cell's small pool on the CPU (batches in order, each
+# batch's tensors by name), as the generator drew them before it took hot keys:
+# a traffic file without them draws the same pool
+POOL_DIGESTS = {
+    ("nic_stream.bulk", 7): "eede9baacba6fcc5004cf31fdbed5e86",
+    ("nic_stream.bulk", BIG_SEED): "ae93ccb888ff06ca0ba64fb52673a14b",
+    ("tenant_fleet.ingest", 7): "d7aac4f3af00df9d4536e06f916ef128",
+    ("tenant_fleet.ingest", BIG_SEED): "fc2eb52d22277e1f7467f9cfad32f363",
+    ("tenant_fleet.dashboard", 7): "d7aac4f3af00df9d4536e06f916ef128",
+    ("tenant_fleet.dashboard", BIG_SEED): "fc2eb52d22277e1f7467f9cfad32f363",
+}
+
+
+def _digest(batches) -> str:
+    h = hashlib.sha256()
+    for batch in batches:
+        for name in sorted(batch):
+            h.update(name.encode())
+            h.update(batch[name].contiguous().numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+@pytest.mark.parametrize("workload,seed", sorted(POOL_DIGESTS))
+def test_existing_pools_are_pinned(workload, seed):
+    cell = small_cell(workload)
+    assert _digest(poollib.make(cell.config, cell.traffic, seed, CPU)) == POOL_DIGESTS[workload, seed]
+
+
+def _one_batch(config, traffic, seed=5):
+    n = traffic["pool_items"]
+    (batch,) = poollib.make(config, {"call_items": n, **traffic}, seed, CPU)
+    return batch
+
+
+def test_an_item_draw_other_than_uniform_is_refused():
+    with pytest.raises(ValueError, match="uniform 32-bit words"):
+        _one_batch({}, {"pool_items": 1 << 10, "items": {"dist": "zipf", "a": 1.1}})
+
+
+def test_hot_keys_take_their_share():
+    rows = 1000
+    keys = _one_batch({"rows": rows}, {"pool_items": 1 << 20,
+                                       "keys": {"dist": "hot", "frac": 0.1, "share": 0.9}})["keys"]
+    assert keys.dtype == torch.int32 and int(keys.min()) >= 0 and int(keys.max()) < rows
+    counts = np.bincount(keys.numpy(), minlength=rows)
+    assert abs(counts[:100].sum() / keys.numel() - 0.9) < 0.005
+    # uniform within each group
+    assert counts[:100].min() > 0.8 * counts[:100].mean() and counts[100:].min() > 0.5 * counts[100:].mean()
 
 
 def test_zipf_mod_cdf_is_the_folded_zipf():

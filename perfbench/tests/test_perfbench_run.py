@@ -11,7 +11,7 @@ import torch
 
 from perfbench import harness, trace
 from perfbench.metrics import work_bytes
-from perfbench.tests.conftest import ROOT, WORKLOADS, small_cell
+from perfbench.tests.conftest import ROOT, SPEC, WORKLOADS, small_cell
 
 CPU = torch.device("cpu")
 
@@ -69,12 +69,14 @@ def test_forbidden_modules_compare_whole_top_level_names():
 
 
 def test_the_harness_loads_neither_jax_nor_the_jax_package():
-    code = ("import sys; sys.path[:0] = ['src', '.']\n"
+    systems = sorted({json.loads((ROOT / c["file"]).read_text())["system"] for c in SPEC["configs"]})
+    readers = [m["name"] for m in SPEC["per_layer"]]
+    code = ("import importlib, sys; sys.path[:0] = ['src', '.']\n"
             "from perfbench import harness, calibrate, run\n"
-            "from perfbench.systems import hll_stream, sketch_bank\n"
-            "from perfbench.reference import hll_stream as a, sketch_bank as b\n"
-            "for m in ('host_us.stream', 'kernel_roofline.stream', 'kernel_roofline.fleet', 'device_idle.fleet',"
-            " 'estimate_us.dashboard'): harness.metric_reader(m)\n"
+            f"for s in {systems!r}:\n"
+            "    importlib.import_module('perfbench.systems.' + s)\n"
+            "    importlib.import_module('perfbench.reference.' + s)\n"
+            f"for m in {readers!r}: harness.metric_reader(m)\n"
             "print(harness.forbidden_modules(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -94,22 +96,23 @@ def test_the_reference_imports_nothing_of_the_program():
 
 
 def test_work_bytes_are_pinned():
+    from perfbench.metrics.work.hll_stream import stream_call
+    from perfbench.metrics.work.sketch_bank import fleet_call
+
     # a 2^20-item chunk into 2^16 registers
-    assert work_bytes.stream_call(1 << 20, 16) == 4_325_376
+    assert stream_call(1 << 20, 16) == 4_325_376
     # a 2^14-entry tick into a (1024, 2^12) bank with 1024 counters
-    assert work_bytes.fleet_call(1 << 14, 1024, 12) == 180_224
+    assert fleet_call(1 << 14, 1024, 12) == 180_224
     # each cell's call, by its system
     # nic_stream.bulk: a 2^26-item chunk; tenant_fleet: a 2^25-entry tick, which reaches every register
-    assert work_bytes.stream_call(1 << 26, 16) == 268_566_528
-    assert work_bytes.fleet_call(1 << 25, 1024, 12) == 276_840_448
+    assert stream_call(1 << 26, 16) == 268_566_528
+    assert fleet_call(1 << 25, 1024, 12) == 276_840_448
     for workload, want in (("nic_stream.bulk", 268_566_528), ("tenant_fleet.ingest", 276_840_448),
                            ("tenant_fleet.dashboard", 276_840_448)):
         cell = harness.load_cell(workload)
         assert work_bytes.call_bytes(cell.config, cell.traffic) == want
-
-
-def _x(cat, name, ts, dur):
-    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+    with pytest.raises(ValueError, match="no work bytes"):
+        work_bytes.call_bytes({"system": "no_such_system"}, {"call_items": 1})
 
 
 def _x(cat, name, ts, dur, corr=None):
@@ -199,3 +202,119 @@ def test_readers_return_nothing_where_nothing_is_read():
     assert harness.metric_reader("estimate_us.dashboard")(rec) == pytest.approx(25.0)
     fleet = harness.Record({"system": "sketch_bank", "p": 12, "rows": 1024}, {"call_items": 1 << 14}, rec.trace)
     assert harness.metric_reader("kernel_roofline.fleet")(fleet) == pytest.approx(100 * 2 * 180_224 / 3.35e12 / 72e-6)
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in SPEC["per_layer"]])
+def test_a_reader_reads_nothing_without_a_trace(metric):
+    (entry,) = [m for m in SPEC["per_layer"] if m["name"] == metric]
+    loaded = small_cell(entry["workloads"][0])
+    assert harness.metric_reader(metric)(harness.Record(loaded.config, loaded.traffic, None)) is None
+
+
+def _dashboard_iteration():
+    """One tick (its scatter, then the counters with a copy to the host and a
+    synchronize, and a histogram), and one read (the histogram with its own
+    sync, then a finalize of two small kernels), then the read's copy of the
+    estimates; the port's seams (``bank_update[cuda]``, ``estimate[original]``)
+    lie between its spans."""
+    note = lambda name, t0, t1: _x("user_annotation", name, t0, t1 - t0)
+    launch = lambda ts, corr, name="cudaLaunchKernel", dur=5.0: _x("cuda_runtime", name, ts, dur, corr)
+    return [
+        note(trace.WINDOW, 0.0, 1000.0),
+        note("perfbench.call", 0.0, 300.0),
+        note("sketch.bank.update_many", 10.0, 290.0),
+        note("bank_update[cuda]", 20.0, 100.0),
+        launch(30.0, 1), _x("kernel", "hash_rank_kernel", 40.0, 50.0, 1),
+        launch(60.0, 2), _x("kernel", "bank_scatter_kernel", 90.0, 100.0, 2),
+        note("sketch.bank.counters", 110.0, 280.0),
+        launch(120.0, 3), _x("kernel", "where", 190.0, 20.0, 3),
+        launch(130.0, 4, "cudaMemcpyAsync", 80.0), _x("gpu_memcpy", "Memcpy DtoH", 210.0, 2.0, 4),
+        _x("cuda_runtime", "cudaStreamSynchronize", 215.0, 5.0),
+        launch(230.0, 5), _x("kernel", "kernelHistogram1D", 240.0, 30.0, 5),
+        _x("cuda_runtime", "cudaGetDevice", 250.0, 1.0, 6),  # a CUDA call with no device work
+        note("perfbench.read", 400.0, 700.0),
+        note("sketch.bank.estimate_many", 405.0, 650.0),
+        note("estimate[original]", 410.0, 640.0),
+        note("sketch.estimate.histogram", 415.0, 520.0),
+        launch(420.0, 7), _x("kernel", "kernelHistogram1D", 430.0, 60.0, 7),
+        launch(440.0, 8, "cudaMemcpyAsync", 52.0), _x("gpu_memcpy", "Memcpy DtoH", 490.0, 1.0, 8),
+        _x("cuda_runtime", "cudaStreamSynchronize", 495.0, 3.0),
+        note("sketch.estimate.finalize", 530.0, 630.0),
+        launch(540.0, 9), _x("kernel", "addmv", 545.0, 4.0, 9),
+        launch(600.0, 10), _x("kernel", "div", 605.0, 4.0, 10),
+        launch(660.0, 11, "cudaMemcpyAsync", 20.0), _x("gpu_memcpy", "Memcpy DtoH", 670.0, 1.0, 11),
+        note("sketch.bank.counters", 1100.0, 1200.0),  # after the window: left out
+    ]
+
+
+def test_trace_keeps_the_port_spans_with_launches_syncs_and_parents():
+    spans = trace.summarize(_dashboard_iteration()).spans
+    want = {  # wall, wait, device (us); CUDA calls, launches, syncs; parent
+        "perfbench.call": (300, 85, 202, 7, 5, 1, ""),
+        "sketch.bank.update_many": (280, 85, 202, 7, 5, 1, "perfbench.call"),
+        "sketch.bank.counters": (170, 85, 52, 5, 3, 1, "sketch.bank.update_many"),
+        "perfbench.read": (300, 75, 70, 6, 5, 1, ""),
+        "sketch.bank.estimate_many": (245, 55, 69, 5, 4, 1, "perfbench.read"),
+        "sketch.estimate.histogram": (105, 55, 61, 3, 2, 1, "sketch.bank.estimate_many"),
+        "sketch.estimate.finalize": (100, 0, 8, 2, 2, 0, "sketch.bank.estimate_many"),
+    }
+    assert set(spans) == set(want)  # the seams and the window are not spans
+    for name, (wall, wait, device, cuda_calls, launches, syncs, parent) in want.items():
+        (s,) = spans[name]
+        assert (s.wall_s, s.wait_s, s.device_s) == pytest.approx((wall * 1e-6, wait * 1e-6, device * 1e-6)), name
+        assert (s.cuda_calls, s.launches, s.syncs, s.parent) == (cuda_calls, launches, syncs, parent), name
+        # the tick's spans lie in the window's first call; the read in none
+        assert s.call == (-1 if name.endswith(("read", "estimate_many", "histogram", "finalize")) else 0), name
+
+
+def test_readers_of_the_port_spans():
+    rec = harness.Record({"system": "sketch_bank"}, {}, trace.summarize(_dashboard_iteration()))
+    read = lambda name: harness.metric_reader(name)(rec)
+    assert read("launches.fleet") == 5  # the tick's top span; its read is not a call
+    assert read("syncs.dashboard") == 2.0  # the tick's and the histogram's, over one call
+    assert read("counters_us.fleet") == pytest.approx(52.0)
+    assert read("histogram_us.dashboard") == pytest.approx(61.0)
+    assert read("finalize_host_us.dashboard") == pytest.approx(100.0)
+    # the harness's own spans read as before beside them
+    assert read("host_us.fleet") == pytest.approx(300.0 - 85.0)
+    assert read("estimate_us.dashboard") == pytest.approx(70.0)
+    # spans that hold no CUDA call (a CPU run), or no spans: nothing is read
+    hostless = [e for e in _dashboard_iteration() if e["cat"] == "user_annotation"]
+    for trace_of in (trace.summarize(hostless), trace.Trace(busy_s=0.0, window_s=1.0, device_ops=[], idle_gaps=[])):
+        rec.trace = trace_of
+        for name in ("launches.fleet", "syncs.dashboard", "counters_us.fleet", "histogram_us.dashboard",
+                     "finalize_host_us.dashboard"):
+            assert read(name) is None, name
+
+
+def test_launches_read_the_span_a_call_opens_whatever_its_name():
+    note = lambda name, t0, t1: _x("user_annotation", name, t0, t1 - t0)
+    events = [note(trace.WINDOW, 0.0, 1000.0)]
+    for i, (t, top) in enumerate(((0.0, "sketch.update"), (300.0, "sketch.update"), (600.0, "sketch.cm.update"))):
+        events += [note("perfbench.call", t, t + 150.0), note(top, t + 5, t + 140.0),
+                   note("sketch.inner", t + 10, t + 60.0)]
+        events += [x for k in range(3) for x in (_x("cuda_runtime", "cudaLaunchKernel", t + 20 + 10 * k, 2.0,
+                                                    10 * i + k), _x("kernel", "k", t + 200, 5.0, 10 * i + k))]
+    rec = harness.Record({"system": "hll_stream"}, {}, trace.summarize(events))
+    assert harness.metric_reader("launches.stream")(rec) == 3
+    assert harness.metric_reader("syncs.dashboard")(rec) == 0.0
+    assert {s.parent for s in rec.trace.spans["sketch.inner"]} == {"sketch.update", "sketch.cm.update"}
+
+
+def test_launches_sum_the_port_spans_of_one_call():
+    """A call whose entry point opens two port spans in turn launches what
+    both launch: launches and syncs agree on what one call is."""
+    note = lambda name, t0, t1: _x("user_annotation", name, t0, t1 - t0)
+    launch = lambda ts, corr: _x("cuda_runtime", "cudaLaunchKernel", ts, 2.0, corr)
+    events = [note(trace.WINDOW, 0.0, 1000.0)]
+    for i, t in enumerate((0.0, 400.0)):
+        events += [note("perfbench.call", t, t + 300.0), note("sketch.cm.update", t + 5, t + 100.0),
+                   note("sketch.cm.vote", t + 120, t + 280.0)]
+        events += [launch(t + 10 + 10 * k, 10 * i + k) for k in range(2)]
+        events += [launch(t + 130 + 10 * k, 10 * i + 5 + k) for k in range(3)]
+        events += [_x("cuda_runtime", "cudaStreamSynchronize", t + 200, 5.0)]
+        events += [_x("kernel", "k", t + 350, 1.0, 10 * i + k) for k in (0, 1, 5, 6, 7)]
+    rec = harness.Record({"system": "count_min"}, {}, trace.summarize(events))
+    assert [s.call for s in rec.trace.spans["sketch.cm.vote"]] == [0, 1]
+    assert harness.metric_reader("launches.fleet")(rec) == 5
+    assert harness.metric_reader("syncs.dashboard")(rec) == 1.0

@@ -6,7 +6,8 @@ import re
 import pytest
 
 from perfbench import harness
-from perfbench.tests.conftest import ROOT
+from perfbench.metrics import work_bytes
+from perfbench.tests.conftest import ROOT, hooks, small_path
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -43,9 +44,16 @@ def test_names_units_and_keys():
 @pytest.mark.parametrize("workload", CELLS)
 def test_cell_finds_its_files_and_reports_enough(workload):
     cell = harness.load_cell(workload)
-    assert cell.config["system"] in ("hll_stream", "sketch_bank")
-    assert (ROOT / "perfbench" / "systems" / f"{cell.config['system']}.py").is_file()
-    assert (ROOT / "perfbench" / "reference" / f"{cell.config['system']}.py").is_file()
+    system = cell.config["system"]
+    assert (ROOT / "perfbench" / "systems" / f"{system}.py").is_file()
+    assert (ROOT / "perfbench" / "reference" / f"{system}.py").is_file()
+    assert small_path(workload).is_file()
+    assert (ROOT / "perfbench" / "tests" / "faults" / f"{system}.py").is_file()
+    assert {"faults", "CONTROL_FAILS", "late_shows"} <= set(vars(hooks(system)))
+    if cell.traffic.get("read_each_call"):
+        assert {"altered_read", "altered_read_shows"} <= set(vars(hooks(system)))
+    if any(m["name"].startswith("kernel_roofline.") for m in cell.per_layer):
+        assert work_bytes.call_bytes(cell.config, cell.traffic) > 0
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert cell.per_layer, "every cell reports a per-layer metric"
@@ -77,5 +85,6 @@ def test_unknown_workload_is_refused():
 def test_configs_state_guarantees_and_limits():
     for c in SPEC["configs"]:
         config = json.loads((ROOT / c["file"]).read_text())
-        assert config["reduced"] == c["reduced"] == []
+        assert config["reduced"] == c["reduced"]
+        assert all(key in config for key in c["reduced"])
         assert config["guarantees"] and config["limits"] and config["source"]

@@ -12,14 +12,22 @@ deletes it.  ``summarize`` reduces the trace to
 * ``idle_gaps``: the gaps in the card's timeline, each named by the
   innermost host operation running at its midpoint ("python_between_calls"
   where there is none), summed by name, the ten largest;
-* ``spans``: for each annotation named in ``SPANS`` (the harness's marks
-  around each call and read), one ``Span`` an occurrence: its length on the
-  host, the part of it the host spent waiting for the card, and the device
-  time of the kernels, copies and fills launched inside it, found by the
-  profiler's correlation ids.  Waiting is the whole of each synchronize and
+* ``spans``: for each range in the window whose name starts with one of
+  ``SPAN_PREFIXES`` (the harness's marks around each call and read, and the
+  port's own spans, ``sketch.*``), one ``Span`` an occurrence: its length
+  on the host, the part of it the host spent waiting for the card, the
+  device time of the kernels, copies and fills launched inside it, found by
+  the profiler's correlation ids, its CUDA calls, its launches (the CUDA
+  calls whose correlation id has device work) and its syncs (the calls
+  whose name holds ``Synchronize``), the name of the innermost such range
+  that encloses it, and the index of the harness's call that encloses it.  Waiting is the whole of each synchronize and
   copy, and the part of any other CUDA call beyond the median length of
   calls of its name in the window: a launch that finds the card's queue
   full blocks until a slot frees, which is the card's pace, not the host's.
+
+A per-layer reader reads a span by its name (``held``), or the port's spans
+that the harness's call or read opens directly (``port_tops``), so that a
+new span of the port is read by a new reader alone.
 """
 
 from __future__ import annotations
@@ -37,7 +45,9 @@ WINDOW = "perfbench.window"
 TOP = 10
 NAME_CHARS = 96
 SCAN = 512
-SPANS = ("perfbench.call", "perfbench.read")
+SPAN_PREFIXES = ("perfbench.", "sketch.")
+CALL, READ = "perfbench.call", "perfbench.read"
+PORT = "sketch."
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
@@ -46,6 +56,11 @@ class Span:
     wall_s: float
     wait_s: float
     device_s: float
+    launches: int = 0
+    syncs: int = 0
+    cuda_calls: int = 0
+    parent: str = ""
+    call: int = -1  # which ``perfbench.call`` of the window encloses it, in order; -1 where none
 
 
 @dataclass
@@ -153,7 +168,7 @@ def _correlation(e: dict):
 
 
 def _spans(events: list, w0: float, w1: float) -> dict:
-    """{name: [Span, ...]} of the annotations named in ``SPANS`` inside the window."""
+    """{name: [Span, ...]} of the ranges named with a prefix of ``SPAN_PREFIXES`` inside the window."""
     device_us = {}
     for e in events:
         if e.get("cat") in DEVICE_CATS and _correlation(e) is not None:
@@ -165,16 +180,49 @@ def _spans(events: list, w0: float, w1: float) -> dict:
     for _, d, name, _ in launches:
         lengths.setdefault(name, []).append(d)
     usual = {name: statistics.median(ds) for name, ds in lengths.items()}
-    out = {}
-    for e in events:
-        if e["name"] not in SPANS or e.get("cat") not in ("user_annotation", "cpu_op"):
-            continue
-        a0, dur = float(e["ts"]), float(e["dur"])
-        if a0 < w0 or a0 + dur > w1:
-            continue
+    ranges = sorted(((float(e["ts"]), -float(e["dur"]), e["name"]) for e in events
+                     if e.get("cat") in ("user_annotation", "cpu_op") and e["name"] != WINDOW
+                     and e["name"].startswith(SPAN_PREFIXES)
+                     and w0 <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= w1))
+    out, open_ranges, calls = {}, [], 0
+    for a0, neg_dur, name in ranges:
+        a1 = a0 - neg_dur
+        while open_ranges and open_ranges[-1][0] < a1:
+            open_ranges.pop()
+        parent, call_index = open_ranges[-1][1:] if open_ranges else ("", -1)
+        if name == CALL:
+            call_index, calls = calls, calls + 1
+        open_ranges.append((a1, name, call_index))
+        inside = launches[bisect.bisect_left(starts, a0):bisect.bisect_right(starts, a1)]
         wait = device = 0.0
-        for ts, d, name, corr in launches[bisect.bisect_left(starts, a0):bisect.bisect_right(starts, a0 + dur)]:
-            wait += d if _waits(name) else max(0.0, d - usual[name])
+        n_launches = n_syncs = 0
+        for _, d, call, corr in inside:
+            wait += d if _waits(call) else max(0.0, d - usual[call])
             device += device_us.get(corr, 0.0)
-        out.setdefault(e["name"], []).append(Span(dur / 1e6, wait / 1e6, device / 1e6))
+            n_launches += corr in device_us
+            n_syncs += "Synchronize" in call
+        out.setdefault(name, []).append(Span(-neg_dur / 1e6, wait / 1e6, device / 1e6, n_launches, n_syncs,
+                                             len(inside), parent, call_index))
     return out
+
+
+def held(trace, name: str):
+    """The occurrences of span ``name`` in ``trace``, or None where there are
+    none or none holds a CUDA call (as on the CPU)."""
+    found = trace.spans.get(name) if trace is not None else None
+    if not found or not any(s.cuda_calls for s in found):
+        return None
+    return found
+
+
+def port_tops(trace, parents=(CALL,)):
+    """The port's spans that a range named in ``parents`` opens directly (a
+    call's ``sketch.update`` or ``sketch.bank.update_many``), or None where
+    there are none or none holds a CUDA call."""
+    if trace is None:
+        return None
+    found = [s for name, spans in trace.spans.items() if name.startswith(PORT)
+             for s in spans if s.parent in parents]
+    if not any(s.cuda_calls for s in found):
+        return None
+    return found
