@@ -25,7 +25,9 @@ device time and its waits on the card.  :func:`region` is that range
 alone, for the sketch path's layer boundaries (``sketch.update``,
 ``sketch.bank.update_many``, ``sketch.bank.counters``,
 ``sketch.bank.estimate_many``, ``sketch.estimate.histogram``,
-``sketch.estimate.finalize``): it costs one flag test with no profiler
+``sketch.estimate.finalize``, and the count-min tick's
+``sketch.cm.update_many``, ``sketch.cm.scatter``, ``sketch.cm.vote``,
+``sketch.cm.counters``): it costs one flag test with no profiler
 recording and adds no event to the capture, which keeps the reference's
 events.
 """

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.kernels.bank_count import bank_row_count
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing
 from repro_torch.sketch import hll, murmur3, u64
 from repro_torch.sketch.bank import _flat_keys_items
 from repro_torch.sketch.dispatch import cm_mesh_sum
@@ -411,18 +412,23 @@ class CountMinBank:
         flat_keys, flat_items = _flat_keys_items(keys, items, self.device)
         if flat_items.shape[0] == 0 or len(self) == 0:
             return self
-        obs_metrics.observe("cm.update_many.batch_items", flat_items.shape[0])
-        counters = update_cm_counters(self.counters, flat_keys, flat_items, self.cfg, plan)
-        labels, label_counts = _label_update(
-            self.labels, self.label_counts, flat_keys, flat_items, self.cfg
-        )
-        return dataclasses.replace(
-            self,
-            counters=counters,
-            labels=labels,
-            label_counts=label_counts,
-            n_items=bank_row_count(self.n_items, flat_keys),
-        )
+        with tracing.region("sketch.cm.update_many"):
+            obs_metrics.observe("cm.update_many.batch_items", flat_items.shape[0])
+            with tracing.region("sketch.cm.scatter"):
+                counters = update_cm_counters(self.counters, flat_keys, flat_items, self.cfg, plan)
+            with tracing.region("sketch.cm.vote"):
+                labels, label_counts = _label_update(
+                    self.labels, self.label_counts, flat_keys, flat_items, self.cfg
+                )
+            with tracing.region("sketch.cm.counters"):
+                n_items = bank_row_count(self.n_items, flat_keys)
+            return dataclasses.replace(
+                self,
+                counters=counters,
+                labels=labels,
+                label_counts=label_counts,
+                n_items=n_items,
+            )
 
     def merge(self, other: "CountMinBank") -> "CountMinBank":
         """Cell-wise counter sum (mod 2^32) + Topkapi label merge; the exact

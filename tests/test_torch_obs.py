@@ -629,6 +629,9 @@ def test_estimate_seams_count_like_reference():
 SKETCH_SPANS = {"sketch.bank.update_many", "bank_update[torch]", "sketch.bank.counters",
                 "sketch.bank.estimate_many", "estimate[original]", "sketch.estimate.histogram",
                 "sketch.estimate.finalize", "sketch.update", "update[torch]"}
+# a count-min tick's ranges, in the order they open, and its backend's seam
+CM_SPANS = ("sketch.cm.update_many", "sketch.cm.scatter", "sketch.cm.vote", "sketch.cm.counters")
+CM_SEAM = "cm_update[torch]"
 
 
 def _profiled(body, tmp_path):
@@ -780,3 +783,70 @@ def test_the_profiler_leaves_the_capture_as_the_reference_has_it(tmp_path):
     profiled = [e["name"] for e in tracing.stop_trace()]
     assert profiled == plain
     assert {"sketch.bank.update_many", "sketch.bank.counters"} <= {n[0] for n in notes}
+
+
+def _cm_tick():
+    """A count-min tick on the torch backend, keys -1 and B among them (dropped)."""
+    rng = np.random.default_rng(31)
+    keys = torch.from_numpy(rng.integers(-1, 5, 600).astype(np.int32))
+    items = torch.from_numpy(rng.integers(-20, 20, 600).astype(np.int32))
+    bank = sketch.CountMinBank.empty(4, sketch.CMConfig(depth=3, width=64), device="cpu")
+    return bank.update_many(keys, items, ExecutionPlan(backend="torch")), (keys, items)
+
+
+def test_count_min_tick_spans_nest_in_the_profile(tmp_path):
+    notes, ops = _profiled(_cm_tick, tmp_path)
+    spans = [_one(notes, name) for name in CM_SPANS]
+    tick, scatter, vote, counters = spans
+    assert all(_inside(inner, tick) for inner in spans[1:])
+    assert scatter[2] <= vote[1] and vote[2] <= counters[1]  # in that order, none inside another
+    assert _inside(_one(notes, CM_SEAM), scatter)
+    sorts = [op for op in ops if op[0] == "aten::sort"]
+    assert sorts and all(_inside(op, vote) for op in sorts)
+
+
+def test_count_min_ranges_open_only_under_the_profiler(monkeypatch, tmp_path):
+    entered = _spy_ranges(monkeypatch)
+    _cm_tick()
+    metrics.enable()
+    tracing.start_trace()
+    _cm_tick()
+    tracing.stop_trace()
+    metrics.disable()
+    assert entered == []
+    _profiled(_cm_tick, tmp_path)
+    assert entered == [CM_SPANS[0], CM_SPANS[1], CM_SEAM, *CM_SPANS[2:]]
+
+
+def test_count_min_ranges_leave_the_capture_as_it_was(tmp_path):
+    """The count-min regions reach the profiler only: a capture of a tick
+    taken under the profiler holds the same events as one taken without it."""
+    tracing.start_trace()
+    _cm_tick()
+    plain = [e["name"] for e in tracing.stop_trace()]
+    tracing.start_trace()
+    notes, _ = _profiled(_cm_tick, tmp_path)
+    profiled = [e["name"] for e in tracing.stop_trace()]
+    assert profiled == plain == [CM_SEAM]
+    assert set(CM_SPANS) <= {n[0] for n in notes}
+
+
+def test_count_min_tables_are_bit_identical_with_the_ranges_and_without(tmp_path):
+    """A tick's counters, labels, votes and row counts are the same under the
+    profiler (every range open), without it, and as the tick's three steps
+    called one after another with no range at all."""
+    from repro_torch.kernels.bank_count import bank_row_count
+    from repro_torch.sketch import countmin
+
+    plain, (keys, items) = _cm_tick()
+    ranged = []
+    _profiled(lambda: ranged.append(_cm_tick()[0]), tmp_path)
+    empty = sketch.CountMinBank.empty(4, plain.cfg, device="cpu")
+    plan = ExecutionPlan(backend="torch")
+    labels, votes = countmin._label_update(empty.labels, empty.label_counts, keys, items, plain.cfg)
+    bare = (countmin.update_cm_counters(empty.counters, keys, items, plain.cfg, plan), labels, votes,
+            bank_row_count(empty.n_items, keys))
+    for bank in (ranged[0], plain):
+        for got, want in zip((bank.counters, bank.labels, bank.label_counts, bank.n_items), bare):
+            assert got.dtype == want.dtype and torch.equal(got, want)
+    assert int(plain.label_counts.gt(0).sum()) > 0 and plain.counts.sum() == int(((keys >= 0) & (keys < 4)).sum())
