@@ -13,7 +13,7 @@ checkout's, so that two trees are measured by the same code: run parent,
 change, change, parent in one call to compare them.  Phases, each of which
 raises (exit code 1) when it fails:
 
-  build    compile the twelve kernels (ten sources) from
+  build    compile the thirteen kernels (eleven sources) from
            src/repro_torch/kernels/csrc with nvcc, one process per source,
            all at once; print the seconds and ptxas's register,
            shared-memory and spill report.
@@ -63,7 +63,12 @@ raises (exit code 1) when it fails:
            version; its ptxas report and the blocks an SM holds;
            bank_row_count on Zipf(1.2) keys, dropped keys, one row and
            none, onto limbs near 2^32 and 2^64, at 1024 rows, at the path
-           boundary and at HybridBank's chunk (16384 rows, 909,312 keys).
+           boundary and at HybridBank's chunk (16384 rows, 909,312 keys);
+           cm_vote against the plain vote at d in {1, 4, 16} x w in {1,
+           1000, 1024, 2^16}, n in {2^22 + 3, 1, 127}, Zipf(1.2) items with the
+           int32 limits among them, onto random int32 tables, and on one key
+           and one item taking every entry and on only dropped keys,
+           printing the cells each case sent down the cooperative path.
   stream   the paper's NIC deployment (Tab. IV), lengthened: 2^26 uint32
            items in 16 chunks of 2^22 through ``update_registers`` under
            "cuda" and "cuda_pipelined" (k = 8), for (p, H) in
@@ -100,7 +105,13 @@ raises (exit code 1) when it fails:
            queried equal under both plans and never below the exact count;
            topk(10) equal; the true top-1 id of each of the 16 busiest rows
            in its topk(10); RCMB round trip; merge of two halves equal to
-           one ingest.
+           one ingest; labels and votes equal to the plain vote
+           (_label_update) tick by tick, since the vote is the kernel under
+           both plans; the ticks launched cm_vote once each; cm_vote alone
+           at the tick's shape on this phase's ticks and on uniform keys
+           and items (the benchmark cell's), device and host ms, its bytes
+           bound, the plain vote's wall ms, the last tick's cells on the
+           cooperative path.
   cm_window  a WindowedCountMinBank W = 64, B = 1024, CMConfig(4, 1024)
            (a 3 GiB ring) over 2W epochs of 2^20 items with one advance_to
            jump of W + 3: fold_window() and fold_window(W // 4) under "cuda"
@@ -313,7 +324,7 @@ raises (exit code 1) when it fails:
 
 The launch counters are zeroed just before the stream, bank, hybrid,
 window, countmin, cm_window and board phases (the sketch paths) and read
-just after; the nine sketch kernels must have launched there.  They are
+just after; the ten sketch kernels must have launched there.  They are
 zeroed again just before the serve phase and read just after; rwkv_intra
 must have launched there, once per layer of every prefill whose prompt a
 chunk divides.  They are zeroed once more just before the launch phase's
@@ -388,6 +399,10 @@ try:  # a tree from before the counters' kernel (--src) has no bank_count
     from repro_torch.kernels import bank_count as count_module  # noqa: E402
 except ImportError:
     count_module = None
+try:  # a tree from before the vote's kernel (--src) has no cm_vote
+    from repro_torch.kernels import cm_vote as vote_module  # noqa: E402
+except ImportError:
+    vote_module = None
 from repro_torch.kernels.rwkv_intra import (  # noqa: E402
     rwkv_intra,
     rwkv_intra_bwd,
@@ -512,13 +527,18 @@ KERNEL_SOURCES = {
     # no Pallas kernel: the reference counts a tick's keys with jnp.bincount
     "bank_row_count": ("src/repro_torch/kernels/csrc/bank_count.cu",
                        "src/repro/sketch/bank.py:277 (jnp.bincount of the exact row counters)"),
+    # no Pallas kernel: the reference votes in plain JAX (a lexsort, run
+    # lengths and two segment_max)
+    "cm_vote": ("src/repro_torch/kernels/csrc/cm_vote.cu",
+                "src/repro/sketch/countmin.py:211 (_label_update, the Topkapi vote)"),
 }
 # timed in rounds, min/median/max printed
 SPREAD_KERNELS = ("cm_scatter_add", "hll_update_fused", "bank_scatter_max", "bucket_fold", "rwkv_intra_bwd")
 SPREAD_ROUNDS = 5
-# whose plain and library calls read back to the host (torch.bincount): timed
-# by the synchronized wall clock (_wall_ms)
-HOST_READS = ("bank_row_count",)
+# whose plain and library calls read back to the host (torch.bincount, the
+# plain vote's unique_consecutive): timed by the synchronized wall clock
+# (_wall_ms)
+HOST_READS = ("bank_row_count", "cm_vote")
 PROFILE_ATTEMPTS = 3  # recordings of a profile step before its partial one is reported
 # profiled only when --profile names them: a full-width train step launches
 # ~10^5 kernels, and their recording took 399 s of a call (NVIDIA H100 80GB
@@ -827,6 +847,50 @@ def _row_count_cases(device, n: int, rows: int, hybrid_rows: int, rng: np.random
     return err
 
 
+def _vote_cases(device, n: int, rows: int, rng: np.random.Generator) -> float:
+    """cm_vote against the plain vote (_label_update) on the card, bit for
+    bit: d in {1, 4, 16} x w in {1, 1000, 1024, 2^16} on n + 3 keys with -1 and B
+    mixed in and Zipf(1.2) items over 500 ids (with the int32 limits among
+    them, so that multiplicities tie), onto random int32 tables (every branch
+    of the absorb rule); one key and one item taking every entry, only
+    dropped keys, n = 1 and 127; prints the cells that took the cooperative
+    path (warp, block) in each case."""
+    ids = rng.integers(-(2**31), 2**31, 500, dtype=np.int64)
+    ids[:2] = [-(2**31), 2**31 - 1]
+
+    def tables(b_rows, cfg):
+        shape = (b_rows, cfg.depth, cfg.width)
+        return [torch.from_numpy(rng.integers(-(2**31), 2**31, shape, dtype=np.int64).astype(np.int32)).to(device)
+                for _ in range(2)]
+
+    cases = {}
+    for depth in (1, 4, 16):
+        for width in (1, 1000, 1024, 1 << 16):
+            cfg = CMConfig(depth, width, seed=2**64 - 1 if width == 1000 else 0)
+            b_rows = max(1, min(rows, (CM_CELL_CAP // 4) // cfg.cells))
+            for length in (n + 3, 1, 127):
+                keys = rng.integers(-1, b_rows + 1, length, dtype=np.int32)
+                items = ids[(rng.zipf(1.2, length) - 1) % ids.size].astype(np.int32)
+                cases[f"{cfg} B={b_rows} n={length}"] = (keys, items, b_rows, cfg)
+    cfg = CMConfig(CM_DEPTH, CM_WIDTH)
+    keys = rng.integers(-1, rows + 1, n + 3, dtype=np.int32)
+    cases["one key one item"] = (np.full(n + 3, rows // 2, np.int32), np.full(n + 3, -99, np.int32), rows, cfg)
+    cases["only dropped keys"] = (np.where(keys % 2 == 0, -1, rows).astype(np.int32), keys, rows, cfg)
+    err, paths = 0.0, {}
+    for what, (keys, items, b_rows, cfg) in cases.items():
+        labels, votes = tables(b_rows, cfg)
+        k_t, x = torch.from_numpy(keys).to(device), torch.from_numpy(items).to(device)
+        got = vote_module.cm_vote(labels, votes, k_t, x, cfg)
+        want = _label_update(labels, votes, k_t, x, cfg)
+        err = max(err, _max_abs_err(got[0], want[0], f"cm_vote labels, {what}"),
+                  _max_abs_err(got[1], want[1], f"cm_vote votes, {what}"))
+        if torch.device(device).type == "cuda":
+            paths[what] = vote_module.cm_vote.cooperative.tolist()
+        del labels, votes, got, want
+    print(f"[kernels] cm_vote cells on the cooperative path (warp, block): {json.dumps(paths)}")
+    return err
+
+
 def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
                   hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, cm_cells: int = CM_CELL_CAP,
                   intra_shapes=INTRA_SHAPES, intra_strong=INTRA_STRONG, intra_bwd_shapes=INTRA_BWD_SHAPES,
@@ -929,6 +993,7 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
         )
     errs["bank_scatter_max"] = max(errs["bank_scatter_max"], _bank_cases(device, n, rows, rng))
     errs["bank_row_count"] = _row_count_cases(device, n, rows, hybrid_rows, rng)
+    errs["cm_vote"] = _vote_cases(device, n, rows, rng)
     for p in (4, 8, 12, 16):
         m = 1 << p
         srows = hybrid_rows if p <= 12 else rows
@@ -1407,13 +1472,17 @@ def _lookup(codes: torch.Tensor, counts: torch.Tensor, query: torch.Tensor) -> t
 def phase_countmin(device, rows: int = CM_ROWS, ticks: int = CM_TICKS, tick_items: int = CM_TICK_ITEMS,
                    depth: int = CM_DEPTH, width: int = CM_WIDTH, item_ids: int = CM_ITEM_IDS,
                    probes: int = CM_PROBES) -> dict:
-    """bench_heavy's largest CountMinBank through "cuda", held to "torch"."""
+    """bench_heavy's largest CountMinBank through "cuda", held to "torch",
+    its labels and votes to the plain vote tick by tick; the vote kernel
+    alone at the tick's shape against its bound and the plain vote."""
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     k_t, x_t = _cm_traffic(rows, ticks * tick_items, item_ids, gen)
     cfg = CMConfig(depth, width, seed=0)
     spans = [slice(t * tick_items, (t + 1) * tick_items) for t in range(ticks)]
     plans = {"cuda": ExecutionPlan(backend="cuda"), "torch": reference_plan()}
-    banks, seconds = {}, {}
+    on_card = torch.device(device).type == "cuda" and vote_module is not None
+    voted = vote_module.cm_vote.launches if vote_module is not None else 0
+    banks, seconds, cooperative = {}, {}, None
     for name, plan in plans.items():
         CountMinBank.empty(rows, cfg, device).update_many(k_t[spans[0]], x_t[spans[0]], plan)  # warm-up
         bank = CountMinBank.empty(rows, cfg, device)
@@ -1424,8 +1493,36 @@ def phase_countmin(device, rows: int = CM_ROWS, ticks: int = CM_TICKS, tick_item
         _sync(device)
         seconds[name] = time.perf_counter() - t0
         banks[name] = bank
+        if on_card and name == "cuda":
+            cooperative = vote_module.cm_vote.cooperative.tolist()  # the last tick's
     bank = banks["cuda"]
     _same_cm(bank, banks["torch"], "countmin cuda vs torch")
+    # the vote is the kernel under every plan on the card: hold it to the plain vote
+    empty = CountMinBank.empty(rows, cfg, device)
+    labels, votes = empty.labels, empty.label_counts
+    for span in spans:
+        labels, votes = _label_update(labels, votes, k_t[span], x_t[span], cfg)
+    _max_abs_err(bank.labels, labels, "countmin labels vs the plain vote")
+    _max_abs_err(bank.label_counts, votes, "countmin votes vs the plain vote")
+    vote = None
+    if on_card:
+        # the main path's ticks took the kernel: 1 + ticks a plan
+        launched = vote_module.cm_vote.launches - voted
+        if launched != 2 * (1 + ticks):
+            raise AssertionError(f"the count-min ticks launched cm_vote {launched} times, not {2 * (1 + ticks)}")
+        # this phase's ticks (Zipf keys: a hot row takes one block) and the
+        # benchmark cell's (keys and items uniform), 4 ticks rotated
+        uniform = [(torch.randint(0, rows, (tick_items,), generator=gen, device=device, dtype=torch.int32),
+                    torch.randint(-(2**31), 2**31 - 1, (tick_items,), generator=gen, device=device,
+                                  dtype=torch.int32)) for _ in range(4)]
+        vote = {"launched": launched, "cooperative_cells_last_tick": cooperative,
+                "bound_ms": (8 * tick_items + 16 * rows * cfg.cells) / HBM_BYTES_PER_S * 1e3}
+        for what, calls in (("zipf keys", [(k_t[span], x_t[span]) for span in spans[:4]]), ("uniform", uniform)):
+            ms, host_ms = _time_ms(lambda k, x: vote_module.cm_vote(labels, votes, k, x, cfg), calls)
+            plain_ms = _wall_ms(lambda k, x: _label_update(labels, votes, k, x, cfg), calls, iters=3)[0]
+            vote[what] = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms}
+        del uniform
+        print(f"[countmin] cm_vote at the tick ({tick_items} entries into {rows} x {cfg}): {json.dumps(vote)}")
     landed = torch.bincount(k_t[(k_t >= 0) & (k_t < rows)].to(torch.int64), minlength=rows)
     if not np.array_equal(bank.counts, landed.cpu().numpy().astype(np.uint64)):
         raise AssertionError("countmin counters are not the exact per-row counts")
@@ -1469,7 +1566,7 @@ def phase_countmin(device, rows: int = CM_ROWS, ticks: int = CM_TICKS, tick_item
         "state_mib": bank.nbytes / 2**20,
         "ingest_items_per_s": {name: k_t.numel() / sec for name, sec in seconds.items()},
         "probe_overcount_mean": float(over.mean()), "probe_overcount_max": float(over.max()),
-        "rcmb_bytes": len(blob),
+        "rcmb_bytes": len(blob), "vote": vote,
     }
     print(f"[countmin] {json.dumps(result)}")
     return result
@@ -3772,6 +3869,21 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
             4 * (11 * bg * bc * bn + 2 * bg * bn),
         ),
     }
+    if vote_module is not None:
+        # cm_vote at the tick of the benchmark's heavy-hitter cell: 2^22 keys
+        # and items uniform into the (1024, 4, 1024) tables, 2 ticks rotated;
+        # no one PyTorch call computes the vote
+        cm_labels, cm_votes = (torch.randint(-8, 8, (rows, CM_DEPTH, CM_WIDTH), generator=gen, device=device,
+                                             dtype=torch.int32) for _ in range(2))
+        vote_ticks = [(torch.randint(0, rows, (n,), generator=gen, device=device, dtype=torch.int32),
+                       torch.randint(-(2**31), 2**31 - 1, (n,), generator=gen, device=device, dtype=torch.int32))
+                      for _ in range(2)]
+        calls["cm_vote"] = (
+            (lambda k, x: vote_module.cm_vote(cm_labels, cm_votes, k, x, cmc), vote_ticks),
+            (lambda k, x: _label_update(cm_labels, cm_votes, k, x, cmc), vote_ticks),
+            None,
+            8 * n + 16 * cm_labels.numel(),
+        )
     if count_module is not None:
         calls["bank_row_count"] = (
             (lambda k: count_module.bank_row_count(count_limbs, k), count_streams),

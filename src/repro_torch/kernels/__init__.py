@@ -16,6 +16,9 @@ One module per TPU kernel of the reference (``repro/kernels``):
                                        chunk math (no Pallas backward)
   bank_count.bank_row_count         <- jnp.bincount of the bank's exact row
                                        counters (no Pallas kernel)
+  cm_vote.cm_vote                   <- the count-min tick's Topkapi vote,
+                                       plain JAX in sketch/countmin.py's
+                                       _label_update (no Pallas kernel)
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises; for ``meta`` tensors (the op analysis and
@@ -46,6 +49,7 @@ KERNELS = {
     "rwkv_intra": ("rwkv_intra", "rwkv_intra"),
     "rwkv_intra_bwd": ("rwkv_intra", "rwkv_intra_bwd"),
     "bank_row_count": ("bank_count", "bank_row_count"),
+    "cm_vote": ("cm_vote", "cm_vote"),
 }
 
 

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = (
     "hash_rank", "hll_fused", "bucket_fold", "bank_scatter", "sparse_scatter", "window_fold", "cm_scatter",
-    "rwkv_intra", "rwkv_intra_bwd", "bank_count",
+    "rwkv_intra", "rwkv_intra_bwd", "bank_count", "cm_vote",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -32,34 +32,36 @@ __device__ __forceinline__ void byte_max(uint32_t* words, uint64_t cell,
 
 // Exclusive scan of a[0 .. len) in shared memory, in place, by the whole
 // block, after every thread's writes to it; returns the total.  `spare`
-// holds 32 ints of shared memory.
-__device__ __forceinline__ int block_scan(int32_t* a, int len, int32_t* spare) {
+// holds 32 words of shared memory.  T is int32_t, or uint32_t where a total
+// may pass 2^31 (its sums wrap mod 2^32).
+template <typename T>
+__device__ __forceinline__ T block_scan(T* a, int len, T* spare) {
   __syncthreads();
   const int per = (len + blockDim.x - 1) / blockDim.x;
   const int lo = min(len, static_cast<int>(threadIdx.x) * per), hi = min(len, lo + per);
-  int sum = 0;
+  T sum = 0;
   for (int i = lo; i < hi; ++i) sum += a[i];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  int x = sum;  // inclusive over the warp
+  T x = sum;  // inclusive over the warp
   for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    const T y = __shfl_up_sync(0xffffffffu, x, d);
     if (lane >= d) x += y;
   }
   if (lane == 31) spare[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int w = lane < warps ? spare[lane] : 0;
+    T w = lane < warps ? spare[lane] : 0;
     for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      const T y = __shfl_up_sync(0xffffffffu, w, d);
       if (lane >= d) w += y;
     }
     spare[lane] = w;  // inclusive over warps
   }
   __syncthreads();
-  int run = x - sum + (warp > 0 ? spare[warp - 1] : 0);
-  const int total = spare[warps - 1];
+  T run = x - sum + (warp > 0 ? spare[warp - 1] : 0);
+  const T total = spare[warps - 1];
   for (int i = lo; i < hi; ++i) {
-    const int v = a[i];
+    const T v = a[i];
     a[i] = run;
     run += v;
   }
@@ -183,7 +185,10 @@ __device__ __forceinline__ int load_segments(const int32_t* __restrict__ offsets
 // kPerLane consecutive entries, kPerLane a lane: one binary search for the
 // first one's segment, then each lane walks on to its own (segments are
 // mostly longer than 32) and loads its kPerLane words before f sees any.
-template <int kPerLane = 4, typename Word, typename F>
+// With kAllLanes, f(word, valid) runs on every lane of the warp together,
+// so that f may match across the warp: lanes past the end get a zero word
+// and valid false.
+template <int kPerLane = 4, bool kAllLanes = false, typename Word, typename F>
 __device__ __forceinline__ void for_each_entry(const Word* __restrict__ words, int per, int s0, int group,
                                                const int32_t* seg_pre, const int32_t* seg_lo, int entries,
                                                F&& f) {
@@ -196,6 +201,10 @@ __device__ __forceinline__ void for_each_entry(const Word* __restrict__ words, i
       else c = mid;
     }
     Word x[kPerLane];
+    if constexpr (kAllLanes) {
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) x[k] = 0;
+    }
 #pragma unroll
     for (int k = 0; k < kPerLane; ++k) {
       const int e = first + lane + 32 * k;
@@ -205,8 +214,13 @@ __device__ __forceinline__ void for_each_entry(const Word* __restrict__ words, i
     }
 #pragma unroll
     for (int k = 0; k < kPerLane; ++k) {
-      if (first + lane + 32 * k >= entries) break;
-      f(x[k]);
+      const bool valid = first + lane + 32 * k < entries;
+      if constexpr (kAllLanes) {
+        f(x[k], valid);
+      } else {
+        if (!valid) break;
+        f(x[k]);
+      }
     }
   }
 }

@@ -15,10 +15,13 @@ hashing, ``idx_r = (h.lo + r * h.hi) mod w`` in uint32.
 Top-k recovery follows Topkapi: each cell carries a (label, label_count)
 majority-vote pair, and the heavy hitters are recovered by querying the
 surviving labels.  ``update_many`` applies the reference's BATCH-CANONICAL
-vote (``_label_update``): a pure function of the batch multiset, so label
-state is bit-identical under every backend.  The vote is plain PyTorch on
-the full stream under every backend; backends differ only on the counter
-scatter (the ``cm_scatter_add`` kernel under "cuda").
+vote: a pure function of the batch multiset, so label state is
+bit-identical under every backend.  The vote does not depend on the
+backend: on the card it is the hand-written ``cm_vote`` kernel (a sort-free
+election by cell, no read to the host), and on the CPU its plain PyTorch
+version ``_label_update``, which the tests hold the kernel to.  Backends
+differ only on the counter scatter (the ``cm_scatter_add`` kernel under
+"cuda").
 
 Counters are uint32 in the reference and wrap mod 2^32.  PyTorch has almost
 no ``torch.uint32`` arithmetic, so here they are int32 tensors holding the
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.bank_count import bank_row_count
+from repro_torch.kernels.cm_vote import cm_vote
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing
 from repro_torch.sketch import hll, murmur3, u64
@@ -224,7 +228,13 @@ def _label_update(
     items: torch.Tensor,
     cfg: CMConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One batch-canonical Topkapi vote over every touched cell.
+    """One batch-canonical Topkapi vote over every touched cell: the plain
+    PyTorch version, on any device.
+
+    ``update_many`` votes through ``kernels.cm_vote``, which runs this for
+    CPU tensors and, for CUDA tensors, the hand-written kernel
+    ``csrc/cm_vote.cu`` in its place: the same tables, bit for bit, with
+    no sort and no read to the host.
 
     Per cell, over THIS batch: the winner ``x*`` is the item with the
     highest multiplicity ``mc`` among the batch's hits (ties to the larger
@@ -404,8 +414,9 @@ class CountMinBank:
         """Route each item to row ``keys[i]``: one fused d-hash scatter-add.
 
         Counters go through the cm backend registered under
-        ``plan.backend``; the Topkapi label vote is the shared torch routine
-        on the full stream, so label state cannot drift across backends.  A
+        ``plan.backend``; the Topkapi label vote is ``cm_vote`` on the full
+        stream under every backend (the kernel on the card, ``_label_update``
+        on the CPU), so label state cannot drift across backends.  A
         zero-length stream or a zero-row bank returns ``self`` without
         dispatching anything.
         """
@@ -417,9 +428,7 @@ class CountMinBank:
             with tracing.region("sketch.cm.scatter"):
                 counters = update_cm_counters(self.counters, flat_keys, flat_items, self.cfg, plan)
             with tracing.region("sketch.cm.vote"):
-                labels, label_counts = _label_update(
-                    self.labels, self.label_counts, flat_keys, flat_items, self.cfg
-                )
+                labels, label_counts = cm_vote(self.labels, self.label_counts, flat_keys, flat_items, self.cfg)
             with tracing.region("sketch.cm.counters"):
                 n_items = bank_row_count(self.n_items, flat_keys)
             return dataclasses.replace(
