@@ -380,7 +380,7 @@ def _port_src() -> Path:
 
 sys.path.insert(0, str(_port_src()))
 
-from repro_torch.kernels import _build, launch_counts, reset_launches  # noqa: E402
+from repro_torch.kernels import KERNELS, _build, launch_counts, reset_launches  # noqa: E402
 from repro_torch.kernels.bank_scatter import bank_scatter_max, bank_scatter_max_plain  # noqa: E402
 from repro_torch.kernels.bucket_fold import bucket_fold, bucket_fold_plain  # noqa: E402
 from repro_torch.kernels.cm_scatter import (  # noqa: E402
@@ -509,29 +509,6 @@ INTRA_BWD_STRONG = ((1280, 64, 64), (2, 32, 32)) + INTRA_BWD_RAGGED
 INTRA_BWD_UNDERFLOW = ((1280, 64, 64), (40, 57, 64))  # decay scale 200
 INTRA_BWD_ZERO_DY = ((1280, 64, 64),)
 INTRA_BWD_TOL = 1e-5
-KERNEL_SOURCES = {
-    "hash_rank": ("src/repro_torch/kernels/csrc/hash_rank.cu", "src/repro/kernels/hash_rank.py:44"),
-    "hll_update_fused": ("src/repro_torch/kernels/csrc/hll_fused.cu", "src/repro/kernels/hll_fused.py:91"),
-    "bucket_fold": ("src/repro_torch/kernels/csrc/bucket_fold.cu", "src/repro/kernels/bucket_fold.py:26"),
-    "bank_scatter_max": ("src/repro_torch/kernels/csrc/bank_scatter.cu", "src/repro/kernels/bank_scatter.py:92"),
-    "sparse_scatter_coo": ("src/repro_torch/kernels/csrc/sparse_scatter.cu", "src/repro/kernels/sparse_scatter.py:99"),
-    "window_fold_max": ("src/repro_torch/kernels/csrc/window_fold.cu", "src/repro/kernels/window_fold.py:51"),
-    "window_merge_max": ("src/repro_torch/kernels/csrc/window_fold.cu", "src/repro/kernels/window_fold.py:102"),
-    "cm_scatter_add": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:94"),
-    "cm_window_fold_sum": ("src/repro_torch/kernels/csrc/cm_scatter.cu", "src/repro/kernels/cm_scatter.py:186"),
-    "rwkv_intra": ("src/repro_torch/kernels/csrc/rwkv_intra.cu", "src/repro/kernels/rwkv_intra.py:54"),
-    # no Pallas backward: the reference differentiates its inline chunk math
-    # (time_mix_chunked) with jax.grad
-    "rwkv_intra_bwd": ("src/repro_torch/kernels/csrc/rwkv_intra_bwd.cu",
-                       "src/repro/models/rwkv6.py:159 (jax.grad of time_mix_chunked's chunk math)"),
-    # no Pallas kernel: the reference counts a tick's keys with jnp.bincount
-    "bank_row_count": ("src/repro_torch/kernels/csrc/bank_count.cu",
-                       "src/repro/sketch/bank.py:277 (jnp.bincount of the exact row counters)"),
-    # no Pallas kernel: the reference votes in plain JAX (a lexsort, run
-    # lengths and two segment_max)
-    "cm_vote": ("src/repro_torch/kernels/csrc/cm_vote.cu",
-                "src/repro/sketch/countmin.py:211 (_label_update, the Topkapi vote)"),
-}
 # timed in rounds, min/median/max printed
 SPREAD_KERNELS = ("cm_scatter_add", "hll_update_fused", "bank_scatter_max", "bucket_fold", "rwkv_intra_bwd")
 SPREAD_ROUNDS = 5
@@ -898,7 +875,7 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
                   intra_bwd_zero_dy=INTRA_BWD_ZERO_DY) -> dict:
     """Every kernel against its plain version at main-path and ragged sizes."""
     rng = np.random.default_rng(SEED)
-    errs = {name: 0.0 for name in KERNEL_SOURCES}
+    errs = {name: 0.0 for name in KERNELS}
     lengths = (n, n + 3, 1, 127, 1000)
     for p, hash_bits in tuple(configs) + ((4, 64), (8, 32)):
         for seed in (0, 2**64 - 1):
@@ -1481,7 +1458,7 @@ def phase_countmin(device, rows: int = CM_ROWS, ticks: int = CM_TICKS, tick_item
     spans = [slice(t * tick_items, (t + 1) * tick_items) for t in range(ticks)]
     plans = {"cuda": ExecutionPlan(backend="cuda"), "torch": reference_plan()}
     on_card = torch.device(device).type == "cuda" and vote_module is not None
-    voted = vote_module.cm_vote.launches if vote_module is not None else 0
+    voted = launch_counts().get("cm_vote", 0)
     banks, seconds, cooperative = {}, {}, None
     for name, plan in plans.items():
         CountMinBank.empty(rows, cfg, device).update_many(k_t[spans[0]], x_t[spans[0]], plan)  # warm-up
@@ -1507,7 +1484,7 @@ def phase_countmin(device, rows: int = CM_ROWS, ticks: int = CM_TICKS, tick_item
     vote = None
     if on_card:
         # the main path's ticks took the kernel: 1 + ticks a plan
-        launched = vote_module.cm_vote.launches - voted
+        launched = launch_counts()["cm_vote"] - voted
         if launched != 2 * (1 + ticks):
             raise AssertionError(f"the count-min ticks launched cm_vote {launched} times, not {2 * (1 + ticks)}")
         # this phase's ticks (Zipf keys: a hot row takes one block) and the
@@ -1727,9 +1704,9 @@ def _prefill_trio(model, batch, arch, kv_len: int):
     how far a last-place change of the intra sums, such as another order of
     summation makes, carries through the model.  Returns them and the
     first's launches."""
-    before = rwkv_intra.launches
+    before = launch_counts()["rwkv_intra"]
     got = engine.prefill(model, batch, arch, kv_len)
-    launched = rwkv_intra.launches - before
+    launched = launch_counts()["rwkv_intra"] - before
     real = _swap_intra(rwkv_intra_plain)
     try:
         want = engine.prefill(model, batch, arch, kv_len)
@@ -4388,13 +4365,14 @@ def main() -> int:
           f"memory {full['max_memory_allocated']} bytes")
     kernels = [
         {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{kernel.source}.cu",
+            "replaces": kernel.replaces,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
             "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
             "library_ms": timing[name]["library_ms"],
         }
-        for name, (src, replaces) in KERNEL_SOURCES.items()
+        for name, kernel in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -1,70 +1,74 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-One module per TPU kernel of the reference (``repro/kernels``):
-
-  hash_rank.hash_rank               <- hash_rank.py::hash_rank
-  hll_fused.hll_update_fused        <- hll_fused.py::hll_update_fused
-  bucket_fold.bucket_fold           <- bucket_fold.py::bucket_fold
-  bank_scatter.bank_scatter_max     <- bank_scatter.py::bank_scatter_max
-  sparse_scatter.sparse_scatter_coo <- sparse_scatter.py::sparse_scatter_coo
-  window_fold.window_fold_max       <- window_fold.py::window_fold_max
-  window_fold.window_merge_max      <- window_fold.py::window_merge_max
-  cm_scatter.cm_scatter_add         <- cm_scatter.py::cm_scatter_add
-  cm_scatter.cm_window_fold_sum     <- cm_scatter.py::cm_window_fold_sum
-  rwkv_intra.rwkv_intra             <- rwkv_intra.py::rwkv_intra
-  rwkv_intra.rwkv_intra_bwd         <- jax.grad of the reference's inline
-                                       chunk math (no Pallas backward)
-  bank_count.bank_row_count         <- jnp.bincount of the bank's exact row
-                                       counters (no Pallas kernel)
-  cm_vote.cm_vote                   <- the count-min tick's Topkapi vote,
-                                       plain JAX in sketch/countmin.py's
-                                       _label_update (no Pallas kernel)
-
+One module per TPU kernel of the reference (``repro/kernels``); ``KERNELS``
+lists every kernel with its wrapper, its CUDA source and what it replaces.
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
-launches its kernel or raises; for ``meta`` tensors (the op analysis and
-the dry-run) it returns empty outputs of its kernel's shapes.  Each wrapper
-counts its launches in a plain integer attribute, ``launches``, and
-declares its kernel's FLOPs and bytes at each launch, and on ``meta``
-tensors, to ``repro_torch.obs.costs``.  Sources live in ``csrc/`` and build with
-nvcc at first launch (``_build.py``), so importing this package needs
-neither nvcc nor a card.
+launches its kernel through ``_build.launch``, which counts the launch
+(``launch_counts``) and declares its kernel's FLOPs and bytes to
+``repro_torch.obs.costs``, or raises; for ``meta`` tensors (the op analysis
+and the dry-run) it returns empty outputs of its kernel's shapes and
+declares the same cost.  Sources live in ``csrc/`` and build with nvcc at
+first launch (``_build.py``), so importing this package needs neither nvcc
+nor a card.  A new kernel adds its ``csrc/<source>.cu``, its wrapper module
+and one ``KERNELS`` entry.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple
 
-# kernel name -> (module, wrapper) under repro_torch.kernels
+from repro_torch.kernels import _build
+
+
+class Kernel(NamedTuple):
+    module: str  # its wrapper's module under repro_torch.kernels
+    wrapper: str  # its wrapper's name there
+    source: str  # the stem of its csrc/<source>.cu
+    replaces: str  # the reference's code it stands for
+
+
 KERNELS = {
-    "hash_rank": ("hash_rank", "hash_rank"),
-    "hll_update_fused": ("hll_fused", "hll_update_fused"),
-    "bucket_fold": ("bucket_fold", "bucket_fold"),
-    "bank_scatter_max": ("bank_scatter", "bank_scatter_max"),
-    "sparse_scatter_coo": ("sparse_scatter", "sparse_scatter_coo"),
-    "window_fold_max": ("window_fold", "window_fold_max"),
-    "window_merge_max": ("window_fold", "window_merge_max"),
-    "cm_scatter_add": ("cm_scatter", "cm_scatter_add"),
-    "cm_window_fold_sum": ("cm_scatter", "cm_window_fold_sum"),
-    "rwkv_intra": ("rwkv_intra", "rwkv_intra"),
-    "rwkv_intra_bwd": ("rwkv_intra", "rwkv_intra_bwd"),
-    "bank_row_count": ("bank_count", "bank_row_count"),
-    "cm_vote": ("cm_vote", "cm_vote"),
+    "hash_rank": Kernel("hash_rank", "hash_rank", "hash_rank", "src/repro/kernels/hash_rank.py:44"),
+    "hll_update_fused": Kernel("hll_fused", "hll_update_fused", "hll_fused", "src/repro/kernels/hll_fused.py:91"),
+    "bucket_fold": Kernel("bucket_fold", "bucket_fold", "bucket_fold", "src/repro/kernels/bucket_fold.py:26"),
+    "bank_scatter_max": Kernel("bank_scatter", "bank_scatter_max", "bank_scatter",
+                               "src/repro/kernels/bank_scatter.py:92"),
+    "sparse_scatter_coo": Kernel("sparse_scatter", "sparse_scatter_coo", "sparse_scatter",
+                                 "src/repro/kernels/sparse_scatter.py:99"),
+    "window_fold_max": Kernel("window_fold", "window_fold_max", "window_fold", "src/repro/kernels/window_fold.py:51"),
+    "window_merge_max": Kernel("window_fold", "window_merge_max", "window_fold",
+                               "src/repro/kernels/window_fold.py:102"),
+    "cm_scatter_add": Kernel("cm_scatter", "cm_scatter_add", "cm_scatter", "src/repro/kernels/cm_scatter.py:94"),
+    "cm_window_fold_sum": Kernel("cm_scatter", "cm_window_fold_sum", "cm_scatter",
+                                 "src/repro/kernels/cm_scatter.py:186"),
+    "rwkv_intra": Kernel("rwkv_intra", "rwkv_intra", "rwkv_intra", "src/repro/kernels/rwkv_intra.py:54"),
+    # no Pallas backward: the reference differentiates its inline chunk math
+    # (time_mix_chunked) with jax.grad
+    "rwkv_intra_bwd": Kernel("rwkv_intra", "rwkv_intra_bwd", "rwkv_intra_bwd",
+                             "src/repro/models/rwkv6.py:159 (jax.grad of time_mix_chunked's chunk math)"),
+    # no Pallas kernel: the reference counts a tick's keys with jnp.bincount
+    "bank_row_count": Kernel("bank_count", "bank_row_count", "bank_count",
+                             "src/repro/sketch/bank.py:277 (jnp.bincount of the exact row counters)"),
+    # no Pallas kernel: the reference votes in plain JAX (a lexsort, run
+    # lengths and two segment_max)
+    "cm_vote": Kernel("cm_vote", "cm_vote", "cm_vote",
+                      "src/repro/sketch/countmin.py:211 (_label_update, the Topkapi vote)"),
 }
 
 
 def wrappers() -> Dict[str, Callable]:
     """{kernel name: its wrapper}; imports the kernel modules on first call."""
     return {
-        name: getattr(importlib.import_module(f"repro_torch.kernels.{mod}"), fn)
-        for name, (mod, fn) in KERNELS.items()
+        name: getattr(importlib.import_module(f"repro_torch.kernels.{kernel.module}"), kernel.wrapper)
+        for name, kernel in KERNELS.items()
     }
 
 
 def reset_launches() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
+    _build.LAUNCHES.clear()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """{kernel name: its launches since the last ``reset_launches``}."""
+    return {name: _build.LAUNCHES.get(name, 0) for name in KERNELS}

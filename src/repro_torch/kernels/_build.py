@@ -12,6 +12,11 @@ and an unchanged one loads the library already there.  Nothing builds at
 import: a kernel's library builds at its first launch, and ``build_all``
 starts one nvcc per source at once.  The ptxas report (registers, shared
 memory, spills per kernel) is kept beside each library (``build_log``).
+
+Every launch goes through ``launch``: it calls the C launcher on PyTorch's
+current stream, raises on a refused launch, declares the kernel's FLOPs and
+bytes to ``repro_torch.obs.costs`` and counts the launch under the kernel's
+name (``repro_torch.kernels.launch_counts``).
 """
 
 from __future__ import annotations
@@ -28,12 +33,11 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
+from repro_torch.obs import costs
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = (
-    "hash_rank", "hll_fused", "bucket_fold", "bank_scatter", "sparse_scatter", "window_fold", "cm_scatter",
-    "rwkv_intra", "rwkv_intra_bwd", "bank_count", "cm_vote",
-)
+SOURCES = tuple(sorted(path.stem for path in CSRC.glob("*.cu")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +45,7 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
+LAUNCHES: Dict[str, int] = {}  # kernel name -> its launches since the last reset
 
 
 def _nvcc() -> str:
@@ -133,6 +138,20 @@ def check(lib: str, error: int, what: str) -> None:
     if error != 0:
         text = _LIBS[lib].repro_error_string(error).decode()
         raise RuntimeError(f"{what}: CUDA error {error} ({text})")
+
+
+def launch(kernel: str, lib: str, symbol: str, argtypes: Sequence, device: torch.device, args: Sequence,
+           flops: int, nbytes: int) -> None:
+    """Launch ``kernel`` through the C launcher ``symbol`` of library ``lib``
+    on ``device``, with ``args`` and PyTorch's current stream; raise if the
+    launch was refused, else declare its ``flops`` and ``nbytes``
+    (``repro_torch.obs.costs``) and count it in ``LAUNCHES``."""
+    fn = function(lib, symbol, argtypes)
+    with torch.cuda.device(device):
+        error = fn(*args, stream(device))
+    check(lib, error, kernel)
+    costs.kernel(kernel, flops, nbytes)
+    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
 
 
 def on_meta(*tensors: torch.Tensor) -> bool:

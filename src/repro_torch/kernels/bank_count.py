@@ -110,7 +110,7 @@ def bank_row_count(limbs: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     keys = _check(limbs, keys)
     rows, n = limbs.shape[0], keys.numel()
     if _build.on_meta(limbs, keys):
-        _declare(rows, n)
+        costs.kernel("bank_row_count", *_cost(rows, n))
         return torch.empty_like(limbs)
     device = _build.require_cuda(limbs, keys)
     if n == 0 or rows == 0:
@@ -120,20 +120,14 @@ def bank_row_count(limbs: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     limbs = limbs.contiguous()
     out = torch.empty_like(limbs)
     scratch = torch.empty(rows, dtype=torch.int64, device=device)
-    fn = _build.function("bank_count", "bank_count_launch", _ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(keys.data_ptr(), n, rows, per, blocks, int(path == "shared"), limbs.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), _build.stream(device))
-    _build.check("bank_count", err, "bank_row_count")
-    _declare(rows, n)
-    bank_row_count.launches += 1
+    _build.launch("bank_row_count", "bank_count", "bank_count_launch", _ARGTYPES, device,
+                  (keys.data_ptr(), n, rows, per, blocks, int(path == "shared"), limbs.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr()),
+                  *_cost(rows, n))
     obs_metrics.inc(f"bank.counters.{path}")
     return out
 
 
-def _declare(rows: int, n: int) -> None:
+def _cost(rows: int, n: int):
     """4 B a key read once, 16 B a row read and written."""
-    costs.kernel("bank_row_count", 0, 4 * n + 32 * rows)
-
-
-bank_row_count.launches = 0
+    return 0, 4 * n + 32 * rows

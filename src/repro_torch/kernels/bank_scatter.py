@@ -168,7 +168,7 @@ def bank_scatter_max(
         return bank_scatter_max_plain(registers, keys, idx, rank)
     flat = _check(registers, keys, idx, rank)
     if _build.on_meta(registers, *flat):
-        _declare(registers, flat[0].numel())
+        costs.kernel("bank_scatter_max", *_cost(registers, flat[0].numel()))
         return torch.empty_like(registers)
     device = _build.require_cuda(registers, *flat)
     rows, m = registers.shape
@@ -192,9 +192,9 @@ def bank_scatter_max_tiled(
     return _tiled(registers, *flat, _build.require_cuda(registers, *flat))
 
 
-def _declare(registers: torch.Tensor, n: int) -> None:
+def _cost(registers: torch.Tensor, n: int):
     """The bank read and written once, 12 B an entry of the stream."""
-    costs.kernel("bank_scatter_max", 0, 2 * registers.numel() + 12 * n)
+    return 0, 2 * registers.numel() + 12 * n
 
 
 def _tiled(registers, keys, idx, rank, device) -> torch.Tensor:
@@ -218,14 +218,10 @@ def _tiled(registers, keys, idx, rank, device) -> torch.Tensor:
     packed_at = _round4(slices * (plan.tiles + 1) + 3 * plan.tiles + 2)
     words = _round4(packed_at + per * slices) + (n // UNIT_ITEMS) * (TILE_BYTES // 4)
     scratch = torch.empty(words, dtype=torch.int32, device=device)
-    fn = _build.function("bank_scatter", "bank_scatter_tiled_launch", _TILED_ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(registers.data_ptr(), out.data_ptr(), keys.data_ptr(), idx.data_ptr(), rank.data_ptr(), n, rows,
-                 m, plan.rows_per_tile, plan.tiles, per, slices, UNIT_ITEMS, sms, scratch.data_ptr(), words,
-                 _build.stream(device))
-    _build.check("bank_scatter", err, "bank_scatter_max")
-    _declare(registers, n)
-    bank_scatter_max.launches += 1
+    _build.launch("bank_scatter_max", "bank_scatter", "bank_scatter_tiled_launch", _TILED_ARGTYPES, device,
+                  (registers.data_ptr(), out.data_ptr(), keys.data_ptr(), idx.data_ptr(), rank.data_ptr(), n, rows,
+                   m, plan.rows_per_tile, plan.tiles, per, slices, UNIT_ITEMS, sms, scratch.data_ptr(), words),
+                  *_cost(registers, n))
     return out
 
 
@@ -250,16 +246,7 @@ def _global(registers, keys, idx, rank, device) -> torch.Tensor:
     out = registers.clone(memory_format=torch.contiguous_format)
     if keys.numel() == 0:
         return out
-    fn = _build.function("bank_scatter", "bank_scatter_launch", _ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(
-            out.data_ptr(), keys.data_ptr(), idx.data_ptr(), rank.data_ptr(), keys.numel(),
-            rows, m, _build.stream(device),
-        )
-    _build.check("bank_scatter", err, "bank_scatter_max")
-    _declare(registers, keys.numel())
-    bank_scatter_max.launches += 1
+    _build.launch("bank_scatter_max", "bank_scatter", "bank_scatter_launch", _ARGTYPES, device,
+                  (out.data_ptr(), keys.data_ptr(), idx.data_ptr(), rank.data_ptr(), keys.numel(), rows, m),
+                  *_cost(registers, keys.numel()))
     return out
-
-
-bank_scatter_max.launches = 0

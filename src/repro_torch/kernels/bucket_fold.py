@@ -54,22 +54,13 @@ def bucket_fold(partials: torch.Tensor) -> torch.Tensor:
         return bucket_fold_plain(partials)
     partials = _check(partials)
     k, m = partials.shape
-    nbytes = (k + 1) * m * _ELEMENT_BYTES[partials.dtype]  # the partials in, the fold out
+    cost = 0, (k + 1) * m * _ELEMENT_BYTES[partials.dtype]  # the partials in, the fold out
     if _build.on_meta(partials):
-        costs.kernel("bucket_fold", 0, nbytes)
+        costs.kernel("bucket_fold", *cost)
         return torch.empty((m,), dtype=partials.dtype, device="meta")
     device = _build.require_cuda(partials)
     out = torch.empty((m,), dtype=partials.dtype, device=device)
-    fn = _build.function("bucket_fold", "bucket_fold_launch", _ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(
-            partials.data_ptr(), out.data_ptr(), k, m, _ELEMENT_BYTES[partials.dtype],
-            _build.sm_count(device), _build.stream(device),
-        )
-    _build.check("bucket_fold", err, "bucket_fold")
-    costs.kernel("bucket_fold", 0, nbytes)
-    bucket_fold.launches += 1
+    _build.launch("bucket_fold", "bucket_fold", "bucket_fold_launch", _ARGTYPES, device,
+                  (partials.data_ptr(), out.data_ptr(), k, m, _ELEMENT_BYTES[partials.dtype], _build.sm_count(device)),
+                  *cost)
     return out
-
-
-bucket_fold.launches = 0

@@ -4,8 +4,8 @@ Replaces the TPU kernels ``repro/kernels/cm_scatter.py::cm_scatter_add``
 (``_cm_kernel``, the keyed d-hit scatter-add of a ``CountMinBank`` ingest,
 DESIGN.md §13) and ``cm_window_fold_sum`` (``_cm_fold_kernel``, the masked
 ring sum of a ``WindowedCountMinBank`` read).  The CUDA source is
-``csrc/cm_scatter.cu``; the two wrappers launch its two entry points and
-count their launches apart.
+``csrc/cm_scatter.cu``; the two wrappers launch its two entry points,
+counted apart.
 
 Counters are uint32 in the reference; here they are int32 tensors holding
 the uint32 bits, because PyTorch has almost no ``torch.uint32`` arithmetic.
@@ -177,7 +177,7 @@ def cm_scatter_add(
         return cm_scatter_add_plain(counters, keys, items, cfg)
     keys, items = _check_scatter(counters, keys, items, cfg)
     if _build.on_meta(counters, keys, items):
-        _declare(counters, keys.numel())
+        costs.kernel("cm_scatter_add", *_cost(counters, keys.numel()))
         return torch.empty_like(counters)
     device = _build.require_cuda(counters, keys, items)
     counters = counters.contiguous()
@@ -197,20 +197,17 @@ def cm_scatter_add(
     head = slices * (plan.tiles + 1) + 2 * plan.tiles + 1
     words = -(-head // 4) * 4 + per * slices * (1 if plan.log2_width >= 0 else 2)
     scratch = torch.empty(words, dtype=torch.int32, device=device)
-    fn = _build.function("cm_scatter", "cm_scatter_tiled_launch", _TILED_ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(counters.data_ptr(), out.data_ptr(), keys.data_ptr(), items.data_ptr(), n, rows, cfg.depth,
-                 cfg.width, cfg.seed, plan.rows_per_tile, plan.tiles, plan.log2_width, per, slices,
-                 UNIT_ITEMS, scratch.data_ptr(), words, _build.stream(device))
-    _build.check("cm_scatter", err, "cm_scatter_add")
-    _declare(counters, n)
-    cm_scatter_add.launches += 1
+    _build.launch("cm_scatter_add", "cm_scatter", "cm_scatter_tiled_launch", _TILED_ARGTYPES, device,
+                  (counters.data_ptr(), out.data_ptr(), keys.data_ptr(), items.data_ptr(), n, rows, cfg.depth,
+                   cfg.width, cfg.seed, plan.rows_per_tile, plan.tiles, plan.log2_width, per, slices,
+                   UNIT_ITEMS, scratch.data_ptr(), words),
+                  *_cost(counters, n))
     return out
 
 
-def _declare(counters: torch.Tensor, n: int) -> None:
+def _cost(counters: torch.Tensor, n: int):
     """The bank read and written once, 8 B a (key, item) pair."""
-    costs.kernel("cm_scatter_add", 0, 8 * n + 2 * 4 * counters.numel())
+    return 0, 8 * n + 2 * 4 * counters.numel()
 
 
 def cm_scatter_add_global(
@@ -231,13 +228,9 @@ def cm_scatter_add_global(
     n = keys.numel()
     if n == 0 or out.shape[0] == 0:
         return out
-    fn = _build.function("cm_scatter", "cm_scatter_launch", _SCATTER_ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(out.data_ptr(), keys.data_ptr(), items.data_ptr(), n, out.shape[0], cfg.depth, cfg.width,
-                 cfg.seed, _build.stream(device))
-    _build.check("cm_scatter", err, "cm_scatter_add")
-    _declare(out, n)
-    cm_scatter_add.launches += 1
+    _build.launch("cm_scatter_add", "cm_scatter", "cm_scatter_launch", _SCATTER_ARGTYPES, device,
+                  (out.data_ptr(), keys.data_ptr(), items.data_ptr(), n, out.shape[0], cfg.depth, cfg.width, cfg.seed),
+                  *_cost(out, n))
     return out
 
 
@@ -251,6 +244,11 @@ def _check_ring(ring: torch.Tensor, mask: torch.Tensor):
     if mask.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"mask must be bool or uint8, got {mask.dtype}")
     return ring.contiguous(), mask.contiguous()
+
+
+def _fold_cost(ring: torch.Tensor):
+    """The (W, B, ...) ring in, one (B, ...) fold out, 4 B a counter."""
+    return 0, 4 * (ring.numel() + ring.numel() // ring.shape[0])
 
 
 def cm_window_fold_sum_plain(ring: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -269,22 +267,13 @@ def cm_window_fold_sum(ring: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return cm_window_fold_sum_plain(ring, mask)
     ring, mask = _check_ring(ring, mask)
     if _build.on_meta(ring, mask):
-        costs.kernel("cm_window_fold_sum", 0, 4 * (ring.numel() + ring[0].numel()))
+        costs.kernel("cm_window_fold_sum", *_fold_cost(ring))
         return torch.empty(ring.shape[1:], dtype=ring.dtype, device="meta")
     if ring.data_ptr() % 16:  # a view into a larger tensor may start off a 16-byte boundary
         ring = ring.clone()
     device = _build.require_cuda(ring, mask)
     window = ring.shape[0]
     out = torch.empty(ring.shape[1:], dtype=ring.dtype, device=device)
-    fn = _build.function("cm_scatter", "cm_fold_launch", _FOLD_ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(ring.data_ptr(), mask.data_ptr(), window, out.numel(), out.data_ptr(),
-                 _build.stream(device))
-    _build.check("cm_scatter", err, "cm_window_fold_sum")
-    costs.kernel("cm_window_fold_sum", 0, 4 * (ring.numel() + out.numel()))  # the ring in, the fold out
-    cm_window_fold_sum.launches += 1
+    _build.launch("cm_window_fold_sum", "cm_scatter", "cm_fold_launch", _FOLD_ARGTYPES, device,
+                  (ring.data_ptr(), mask.data_ptr(), window, out.numel(), out.data_ptr()), *_fold_cost(ring))
     return out
-
-
-cm_scatter_add.launches = 0
-cm_window_fold_sum.launches = 0

@@ -176,7 +176,7 @@ def cm_vote(
     keys, items = _check(labels, label_counts, keys, items, cfg)
     rows, n = labels.shape[0], keys.numel()
     if _build.on_meta(labels, label_counts, keys, items):
-        _declare(rows * cfg.cells, n)
+        costs.kernel("cm_vote", *_cost(rows * cfg.cells, n))
         return torch.empty_like(labels), torch.empty_like(label_counts)
     device = _build.require_cuda(labels, label_counts, keys, items)
     if n == 0 or rows == 0:
@@ -191,14 +191,10 @@ def cm_vote(
     labels, label_counts = labels.contiguous(), label_counts.contiguous()
     out_l, out_c = torch.empty_like(labels), torch.empty_like(label_counts)
     base = scratch.data_ptr()
-    fn = _build.function("cm_vote", "cm_vote_launch", _ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(labels.data_ptr(), label_counts.data_ptr(), out_l.data_ptr(), out_c.data_ptr(), keys.data_ptr(),
-                 items.data_ptr(), *args, *(None if at is None else base + at for at in regions), head.data_ptr(),
-                 _build.stream(device))
-    _build.check("cm_vote", err, "cm_vote")
-    _declare(rows * cfg.cells, n)
-    cm_vote.launches += 1
+    _build.launch("cm_vote", "cm_vote", "cm_vote_launch", _ARGTYPES, device,
+                  (labels.data_ptr(), label_counts.data_ptr(), out_l.data_ptr(), out_c.data_ptr(), keys.data_ptr(),
+                   items.data_ptr(), *args, *(None if at is None else base + at for at in regions), head.data_ptr()),
+                  *_cost(rows * cfg.cells, n))
     cm_vote.cooperative = head[1:3]
     obs_metrics.inc(path)
     return out_l, out_c
@@ -219,10 +215,9 @@ def _launch_args(rows: int, depth: int, width: int, seed: int, n: int, sms: int)
     return args, regions, nbytes, "cm.vote.shared" if plan.shared else "cm.vote.global"
 
 
-def _declare(cells: int, n: int) -> None:
+def _cost(cells: int, n: int):
     """8 B a (key, item) pair read once, the two tables read and written once."""
-    costs.kernel("cm_vote", 0, 8 * n + 16 * cells)
+    return 0, 8 * n + 16 * cells
 
 
-cm_vote.launches = 0
 cm_vote.cooperative = None

@@ -38,6 +38,11 @@ def _check_items(items: torch.Tensor) -> torch.Tensor:
     return items.reshape(-1).contiguous()
 
 
+def _cost(n: int):
+    """4 B in, 8 B out an item."""
+    return 0, 12 * n
+
+
 def hash_rank_plain(items: torch.Tensor, cfg: HLLConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: ``hll.hash_index_rank`` of the stream."""
     return hll.hash_index_rank(_check_items(items), cfg)
@@ -54,21 +59,12 @@ def hash_rank(items: torch.Tensor, cfg: HLLConfig) -> Tuple[torch.Tensor, torch.
     idx = torch.empty_like(items)
     rank = torch.empty_like(items)
     if _build.on_meta(items):
-        costs.kernel("hash_rank", 0, 12 * items.numel())
+        costs.kernel("hash_rank", *_cost(items.numel()))
         return idx, rank
     device = _build.require_cuda(items)
     if items.numel() == 0:
         return idx, rank
-    fn = _build.function("hash_rank", "hash_rank_launch", _ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(
-            items.data_ptr(), idx.data_ptr(), rank.data_ptr(), items.numel(),
-            cfg.p, cfg.hash_bits, cfg.seed, _build.stream(device),
-        )
-    _build.check("hash_rank", err, "hash_rank")
-    costs.kernel("hash_rank", 0, 12 * items.numel())  # 4 B in, 8 B out an item
-    hash_rank.launches += 1
+    _build.launch("hash_rank", "hash_rank", "hash_rank_launch", _ARGTYPES, device,
+                  (items.data_ptr(), idx.data_ptr(), rank.data_ptr(), items.numel(), cfg.p, cfg.hash_bits, cfg.seed),
+                  *_cost(items.numel()))
     return idx, rank
-
-
-hash_rank.launches = 0

@@ -50,9 +50,9 @@ def hll_partials(n: int, p: int, sms: int) -> int:
     return max(1, min(FILES_PER_SM * sms, -(-n // per_file)))
 
 
-def _bytes(n: int, cfg: HLLConfig) -> int:
+def _cost(n: int, cfg: HLLConfig):
     """The stream read once and the registers read and written once."""
-    return 4 * n + 2 * cfg.m
+    return 0, 4 * n + 2 * cfg.m
 
 
 def _check(registers: torch.Tensor, items: torch.Tensor, n_valid: Optional[int], cfg: HLLConfig):
@@ -88,7 +88,7 @@ def hll_update_fused(
         return hll_update_fused_plain(registers, items, n_valid, cfg)
     items, n = _check(registers, items, n_valid, cfg)
     if _build.on_meta(registers, items):
-        costs.kernel("hll_update_fused", 0, _bytes(n, cfg))
+        costs.kernel("hll_update_fused", *_cost(n, cfg))
         return torch.empty_like(registers)
     device = _build.require_cuda(registers, items)
     registers = registers.contiguous()
@@ -99,16 +99,8 @@ def hll_update_fused(
     files = hll_partials(n, cfg.p, _build.sm_count(device))
     scratch = torch.empty((files, cfg.m), dtype=hll.REGISTER_DTYPE, device=device)
     out = torch.empty_like(registers)
-    fn = _build.function("hll_fused", "hll_fused_launch", _ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(
-            out.data_ptr(), registers.data_ptr(), items.data_ptr(), n, cfg.p, cfg.hash_bits, cfg.seed,
-            scratch.data_ptr(), files, _build.stream(device),
-        )
-    _build.check("hll_fused", err, "hll_update_fused")
-    costs.kernel("hll_update_fused", 0, _bytes(n, cfg))
-    hll_update_fused.launches += 1
+    _build.launch("hll_update_fused", "hll_fused", "hll_fused_launch", _ARGTYPES, device,
+                  (out.data_ptr(), registers.data_ptr(), items.data_ptr(), n, cfg.p, cfg.hash_bits, cfg.seed,
+                   scratch.data_ptr(), files),
+                  *_cost(n, cfg))
     return out
-
-
-hll_update_fused.launches = 0

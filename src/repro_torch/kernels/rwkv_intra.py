@@ -81,14 +81,14 @@ def intra_bwd_flops(g: int, c: int, n: int) -> int:
     return g * n * (pairs * (4 + 2 + 4 + 4) + 2 * (c * (c + 1) // 2) + 12 * c)
 
 
-def _declare(g: int, c: int, n: int) -> None:
+def _cost(g: int, c: int, n: int):
     """Five float32 tiles and u in, one tile out."""
-    costs.kernel("rwkv_intra", intra_flops(g, c, n), 4 * (6 * g * c * n + g * n))
+    return intra_flops(g, c, n), 4 * (6 * g * c * n + g * n)
 
 
-def _declare_bwd(g: int, c: int, n: int) -> None:
+def _bwd_cost(g: int, c: int, n: int):
     """Six float32 tiles and u in, five tiles and du out."""
-    costs.kernel("rwkv_intra_bwd", intra_bwd_flops(g, c, n), 4 * (11 * g * c * n + 2 * g * n))
+    return intra_bwd_flops(g, c, n), 4 * (11 * g * c * n + 2 * g * n)
 
 
 def _check(r, k, v, lex, lcum, u) -> tuple:
@@ -150,24 +150,18 @@ def rwkv_intra(r, k, v, lex, lcum, u) -> torch.Tensor:
     if not (1 <= c <= MAX_C and 1 <= n <= MAX_N):
         raise ValueError(f"the kernel takes 1 <= C <= {MAX_C} and 1 <= N <= {MAX_N}, got C={c}, N={n}")
     if _build.on_meta(*tensors):
-        _declare(g, c, n)
+        costs.kernel("rwkv_intra", *_cost(g, c, n))
         return torch.empty((g, c, n), dtype=torch.float32, device="meta")
     device = _build.require_cuda(*tensors)
     rf, kf, vf, lexf, lf, uf = (t.to(torch.float32).contiguous() for t in tensors)
     y = torch.empty((g, c, n), dtype=torch.float32, device=device)
     if g == 0:
         return y
-    fn = _build.function("rwkv_intra", "rwkv_intra_launch", _ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(rf.data_ptr(), kf.data_ptr(), vf.data_ptr(), lexf.data_ptr(), lf.data_ptr(), uf.data_ptr(),
-                 y.data_ptr(), g, c, n, _build.stream(device))
-    _build.check("rwkv_intra", err, "rwkv_intra")
-    _declare(g, c, n)
-    rwkv_intra.launches += 1
+    _build.launch("rwkv_intra", "rwkv_intra", "rwkv_intra_launch", _ARGTYPES, device,
+                  (rf.data_ptr(), kf.data_ptr(), vf.data_ptr(), lexf.data_ptr(), lf.data_ptr(), uf.data_ptr(),
+                   y.data_ptr(), g, c, n),
+                  *_cost(g, c, n))
     return y
-
-
-rwkv_intra.launches = 0
 
 
 # ----------------------------------------------------------------------------
@@ -218,7 +212,7 @@ def rwkv_intra_bwd(r, k, v, lex, lcum, u, dy) -> tuple:
     if not (1 <= c <= MAX_C and 1 <= n <= MAX_N):
         raise ValueError(f"the kernel takes 1 <= C <= {MAX_C} and 1 <= N <= {MAX_N}, got C={c}, N={n}")
     if _build.on_meta(*tensors):
-        _declare_bwd(g, c, n)
+        costs.kernel("rwkv_intra_bwd", *_bwd_cost(g, c, n))
         return tuple(torch.empty(shape, dtype=torch.float32, device="meta")
                      for shape in [(g, c, n)] * 5 + [(g, n)])
     device = _build.require_cuda(*tensors)
@@ -227,13 +221,6 @@ def rwkv_intra_bwd(r, k, v, lex, lcum, u, dy) -> tuple:
     outs.append(torch.empty((g, n), dtype=torch.float32, device=device))
     if g == 0:
         return tuple(outs)
-    fn = _build.function("rwkv_intra_bwd", "rwkv_intra_bwd_launch", _BWD_ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(*(t.data_ptr() for t in ins + outs), g, c, n, _build.stream(device))
-    _build.check("rwkv_intra_bwd", err, "rwkv_intra_bwd")
-    _declare_bwd(g, c, n)
-    rwkv_intra_bwd.launches += 1
+    _build.launch("rwkv_intra_bwd", "rwkv_intra_bwd", "rwkv_intra_bwd_launch", _BWD_ARGTYPES, device,
+                  (*(t.data_ptr() for t in ins + outs), g, c, n), *_bwd_cost(g, c, n))
     return tuple(outs)
-
-
-rwkv_intra_bwd.launches = 0

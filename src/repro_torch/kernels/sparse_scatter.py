@@ -98,6 +98,11 @@ def stream_split(n: int, sms: int) -> Tuple[int, int]:
     return per, -(-n // per)
 
 
+def _cost(n: int, rows: int, m: int):
+    """The triples in, the cells and counts out."""
+    return 0, 12 * n + 4 * rows * m + 4 * rows
+
+
 def _check(row, bucket, rank, rows: int, m: int):
     flat = [t.reshape(-1).contiguous() for t in (row, bucket, rank)]
     if any(t.dtype != torch.int32 for t in flat):
@@ -140,9 +145,8 @@ def sparse_scatter_coo(
         return sparse_scatter_coo_plain(row, bucket, rank, rows, m)
     row, bucket, rank = _check(row, bucket, rank, rows, m)
     n = row.numel()
-    nbytes = 12 * n + 4 * rows * m + 4 * rows  # the triples in, the cells and counts out
     if _build.on_meta(row, bucket, rank):
-        costs.kernel("sparse_scatter_coo", 0, nbytes)
+        costs.kernel("sparse_scatter_coo", *_cost(n, rows, m))
         return (torch.empty((rows, m), dtype=torch.int32, device="meta"),
                 torch.empty((rows,), dtype=torch.int32, device="meta"))
     device = _build.require_cuda(row, bucket, rank)
@@ -151,14 +155,13 @@ def sparse_scatter_coo(
                 torch.zeros((rows,), dtype=torch.int32, device=device))
     plan = tile_plan(rows, m)
     per, slices = stream_split(n, _build.sm_count(device))
-    stream = _build.stream(device)
     if plan.global_path or slices > MAX_SLICES:
         cells = torch.zeros((rows, m), dtype=torch.int32, device=device)
         distinct = torch.zeros((rows,), dtype=torch.int32, device=device)
-        fn = _build.function("sparse_scatter", "sparse_scatter_launch", _ARGTYPES)
-        with torch.cuda.device(device):
-            err = fn(row.data_ptr(), bucket.data_ptr(), rank.data_ptr(), n, rows, m,
-                     cells.data_ptr(), distinct.data_ptr(), stream)
+        _build.launch("sparse_scatter_coo", "sparse_scatter", "sparse_scatter_launch", _ARGTYPES, device,
+                      (row.data_ptr(), bucket.data_ptr(), rank.data_ptr(), n, rows, m, cells.data_ptr(),
+                       distinct.data_ptr()),
+                      *_cost(n, rows, m))
     else:
         # every cell is written by the kernel, and every count where a tile
         # holds its rows; counts of rows spanning tiles are added up
@@ -168,15 +171,9 @@ def sparse_scatter_coo(
         offsets = torch.empty(slices * (plan.tiles + 1), dtype=torch.int32, device=device)
         wide = torch.empty(slices, dtype=torch.int32, device=device)
         packed = torch.empty(2 * per * slices, dtype=torch.int32, device=device)
-        fn = _build.function("sparse_scatter", "sparse_scatter_tiled_launch", _TILED_ARGTYPES)
-        with torch.cuda.device(device):
-            err = fn(row.data_ptr(), bucket.data_ptr(), rank.data_ptr(), n, rows, m, plan.rows_per_tile,
-                     plan.tiles_per_row, plan.tiles, per, slices, cells.data_ptr(), distinct.data_ptr(),
-                     offsets.data_ptr(), wide.data_ptr(), packed.data_ptr(), stream)
-    _build.check("sparse_scatter", err, "sparse_scatter_coo")
-    costs.kernel("sparse_scatter_coo", 0, nbytes)
-    sparse_scatter_coo.launches += 1
+        _build.launch("sparse_scatter_coo", "sparse_scatter", "sparse_scatter_tiled_launch", _TILED_ARGTYPES, device,
+                      (row.data_ptr(), bucket.data_ptr(), rank.data_ptr(), n, rows, m, plan.rows_per_tile,
+                       plan.tiles_per_row, plan.tiles, per, slices, cells.data_ptr(), distinct.data_ptr(),
+                       offsets.data_ptr(), wide.data_ptr(), packed.data_ptr()),
+                      *_cost(n, rows, m))
     return cells, distinct
-
-
-sparse_scatter_coo.launches = 0

@@ -5,7 +5,7 @@ Replaces the TPU kernels ``repro/kernels/window_fold.py::window_fold_max``
 DESIGN.md §11) and ``window_merge_max`` (the same fold with every slice
 live, over the K fragments of the incremental read, DESIGN.md §14).  The
 CUDA source is ``csrc/window_fold.cu``; the two wrappers launch its two
-entry points and count their launches apart.
+entry points, counted apart.
 
 The TPU kernels tile the ring over row blocks of at most 4096 int32 cells
 (p <= 12) and the wrapper upcasts the uint8 ring to int32 for them.  Here
@@ -59,6 +59,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _cost(stack: torch.Tensor):
+    """The (W, B, m) stack in, one (B, m) fold out."""
+    return 0, stack.numel() + stack.numel() // stack.shape[0]
+
+
 def window_fold_max_plain(ring: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: dead slices as zeros, max over the W axis."""
     ring = _check_ring(ring, "ring")
@@ -76,20 +81,15 @@ def window_fold_max(ring: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if _build.on_meta(ring, mask):
         ring = _check_ring(ring, "ring")
         _check_mask(mask, ring.shape[0])
-        costs.kernel("window_fold_max", 0, ring.numel() + ring[0].numel())
+        costs.kernel("window_fold_max", *_cost(ring))
         return torch.empty(ring.shape[1:], dtype=ring.dtype, device="meta")
     ring = _aligned(_check_ring(ring, "ring"))
     mask = _check_mask(mask, ring.shape[0])
     device = _build.require_cuda(ring, mask)
     window, rows, m = ring.shape
     out = torch.empty((rows, m), dtype=ring.dtype, device=device)
-    fn = _build.function("window_fold", "window_fold_launch", _FOLD_ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(ring.data_ptr(), mask.data_ptr(), window, rows * m, out.data_ptr(),
-                 _build.stream(device))
-    _build.check("window_fold", err, "window_fold_max")
-    costs.kernel("window_fold_max", 0, ring.numel() + out.numel())  # the ring in, the fold out
-    window_fold_max.launches += 1
+    _build.launch("window_fold_max", "window_fold", "window_fold_launch", _FOLD_ARGTYPES, device,
+                  (ring.data_ptr(), mask.data_ptr(), window, rows * m, out.data_ptr()), *_cost(ring))
     return out
 
 
@@ -107,20 +107,12 @@ def window_merge_max(parts: torch.Tensor) -> torch.Tensor:
         return window_merge_max_plain(parts)
     if _build.on_meta(parts):
         parts = _check_ring(parts, "parts")
-        costs.kernel("window_merge_max", 0, parts.numel() + parts[0].numel())
+        costs.kernel("window_merge_max", *_cost(parts))
         return torch.empty(parts.shape[1:], dtype=parts.dtype, device="meta")
     parts = _aligned(_check_ring(parts, "parts"))
     device = _build.require_cuda(parts)
     k, rows, m = parts.shape
     out = torch.empty((rows, m), dtype=parts.dtype, device=device)
-    fn = _build.function("window_fold", "window_merge_launch", _MERGE_ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(parts.data_ptr(), k, rows * m, out.data_ptr(), _build.stream(device))
-    _build.check("window_fold", err, "window_merge_max")
-    costs.kernel("window_merge_max", 0, parts.numel() + out.numel())  # the fragments in, the fold out
-    window_merge_max.launches += 1
+    _build.launch("window_merge_max", "window_fold", "window_merge_launch", _MERGE_ARGTYPES, device,
+                  (parts.data_ptr(), k, rows * m, out.data_ptr()), *_cost(parts))
     return out
-
-
-window_fold_max.launches = 0
-window_merge_max.launches = 0

@@ -24,11 +24,10 @@ every hot seam:
 
 Seam seconds are host dispatch wall time: a seam never synchronizes with
 the card, so a kernel's own time is not in them unless the caller waits.
-While ``torch.profiler`` records, a seam also opens a ``record_function``
-range of its name (:func:`profiling`): the range lands in the profiler's
-trace as a ``user_annotation`` on the device trace's clock, and the
-profiler's correlation ids tie each launch inside it to the card's work,
-so a profile reads the seam's device time as well.
+A seam reaches the metrics and the trace capture only, as the reference's
+does; under ``torch.profiler`` the sketch path's own regions
+(``repro_torch.obs.tracing.region``) mark each call, so a seam opens no
+profiler range.
 """
 
 from __future__ import annotations
@@ -180,7 +179,7 @@ def recording() -> bool:
 
 
 def profiling() -> bool:
-    """True when a span or seam should also open a profiler range.
+    """True when a span or region should also open a profiler range.
 
     The profiler's own module flag short-circuits first, so with no
     ``torch.profiler`` recording this is one attribute test; while
@@ -256,26 +255,21 @@ _NULL = _NullTimer()
 
 
 class _Timer:
-    __slots__ = ("_counter", "_hist", "_trace", "_range", "_t0", "elapsed_s")
+    __slots__ = ("_counter", "_hist", "_trace", "_t0", "elapsed_s")
 
-    def __init__(self, counter, hist, trace, profiler_range=None):
+    def __init__(self, counter, hist, trace):
         self._counter = counter
         self._hist = hist
         self._trace = trace
-        self._range = profiler_range
         self.elapsed_s = 0.0
 
     def __enter__(self):
-        if self._range is not None:
-            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         dur = time.perf_counter() - self._t0
         self.elapsed_s = dur
-        if self._range is not None:
-            self._range.__exit__(*exc)
         if self._counter is not None or self._hist is not None:
             with _LOCK:
                 if self._counter is not None:
@@ -301,27 +295,23 @@ def seam(axis: str, backend: str) -> "_Timer":
     """Timer for one dispatch seam: ``dispatch.{axis}.{backend}``.
 
     Records a ``.calls`` counter and a ``.seconds`` histogram when metrics
-    are enabled, a Chrome-trace event while a trace capture is active, and
-    a profiler range ``{axis}[{backend}]`` while ``torch.profiler`` records
-    — all gated off while ``torch.compile`` traces.  Seconds are host
-    dispatch wall time (a kernel's first launch includes its build; device
-    completion is excluded unless the caller synchronizes); the profiler
-    range ties the launches inside it to their device time.
+    are enabled and a Chrome-trace event ``{axis}[{backend}]`` while a trace
+    capture is active — both gated off while ``torch.compile`` traces.
+    Seconds are host dispatch wall time (a kernel's first launch includes
+    its build; device completion is excluded unless the caller
+    synchronizes).
     """
     live_m = _ENABLED
     live_t = _trace_active()
-    live_p = _autograd_profiler._is_profiler_enabled
-    if not (live_m or live_t or live_p):
+    if not (live_m or live_t):
         return _NULL
     if torch.compiler.is_compiling():
         return _NULL
     key = f"dispatch.{axis}.{backend}"
-    name = f"{axis}[{backend}]"
     return _Timer(
         key + ".calls" if live_m else None,
         key + ".seconds" if live_m else None,
-        name if live_t else None,
-        record_function(name) if live_p else None,
+        f"{axis}[{backend}]" if live_t else None,
     )
 
 
@@ -329,15 +319,15 @@ def wrap_backend(axis: str, name: str, fn: Callable) -> Callable:
     """Wrap a registry backend so every real dispatch is counted + timed.
 
     Applied once at registration (``repro_torch.sketch.plan.register_*``), so
-    the per-dispatch cost when disabled is one extra frame and three flag
-    tests (metrics, the trace capture, the profiler).
+    the per-dispatch cost when disabled is one extra frame and two flag
+    tests (metrics, the trace capture).
     Empty-stream short-circuits never reach the backend, so they are
     never counted — the spy-backend contract (tests/test_torch_obs.py).
     """
 
     @functools.wraps(fn)
     def dispatch(*args, **kwargs):
-        if not (_ENABLED or _trace_active() or _autograd_profiler._is_profiler_enabled):
+        if not (_ENABLED or _trace_active()):
             return fn(*args, **kwargs)
         with seam(axis, name):
             return fn(*args, **kwargs)

@@ -16,13 +16,14 @@ hygiene gate as the metrics registry, DESIGN.md §15).  Port of
 ``repro/obs/tracing.py`` with the same event fields.
 
 A span's ``elapsed_s`` and its capture event are host wall time
-(``perf_counter``).  While ``torch.profiler`` records, a span (and every
-dispatch seam) also opens a ``record_function`` range of its name: the
-range lands in the profiler's trace as a ``user_annotation`` on the device
-trace's clock, and the profiler's correlation ids tie each launch inside
-it to the card's kernels, copies and fills, so a profile reads the span's
-device time and its waits on the card.  :func:`region` is that range
-alone, for the sketch path's layer boundaries (``sketch.update``,
+(``perf_counter``).  While ``torch.profiler`` records, a span also opens a
+``record_function`` range of its name: the range lands in the profiler's
+trace as a ``user_annotation`` on the device trace's clock, and the
+profiler's correlation ids tie each launch inside it to the card's
+kernels, copies and fills, so a profile reads the span's device time and
+its waits on the card.  A dispatch seam opens no range: it reaches the
+metrics and the capture only.  :func:`region` is that range alone, for
+the sketch path's layer boundaries (``sketch.update``,
 ``sketch.bank.update_many``, ``sketch.bank.counters``,
 ``sketch.bank.estimate_many``, ``sketch.estimate.histogram``,
 ``sketch.estimate.finalize``, and the count-min tick's

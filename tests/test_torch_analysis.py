@@ -38,6 +38,7 @@ from repro.models import transformer as ref_transformer
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_arch, is_cell_supported
 from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels import (bank_scatter, bucket_fold, cm_scatter, hash_rank, hll_fused, rwkv_intra,
                                  sparse_scatter, window_fold)
 from repro_torch.launch import dryrun, hlo_analysis, report, sketch_roofline
@@ -212,12 +213,12 @@ def test_wrappers_on_meta_declare_the_bound_columns_cost():
          4 * (11 * 1280 * 64 * 64 + 2 * 1280 * 64), chip_smoke.intra_bwd_flops(1280, 64, 64)),
     ]
     for fn, args, outs, nbytes, flops in cases:
-        before = fn.launches
+        before = launch_counts()[fn.__name__]
         out, rows_ = _declared(fn, *args)
         out = out if isinstance(out, tuple) else (out,)
         assert [(tuple(t.shape), t.dtype) for t in out] == outs, fn.__name__
         assert rows_ == [(fn.__name__, flops, nbytes)], fn.__name__
-        assert fn.launches == before  # nothing launched
+        assert launch_counts()[fn.__name__] == before  # nothing launched
 
 
 def test_meta_outputs_match_the_plain_versions_shapes():

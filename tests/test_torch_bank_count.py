@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import bank_count
+from repro_torch.kernels import bank_count, launch_counts
 from repro_torch.kernels.bank_count import (
     BLOCKS_PER_SM,
     SHARED_ROWS,
@@ -84,7 +84,7 @@ def test_plain_matches_the_old_counters_and_exact_integers(rows, n, name):
     assert got.dtype == torch.int64 and got.shape == (rows, 2)
     np.testing.assert_array_equal(got.numpy(), _exact(limbs, keys))
     assert torch.equal(limbs, before)  # a value: the input limbs are never written
-    assert bank_row_count.launches == 0
+    assert launch_counts()["bank_row_count"] == 0
 
 
 def _tally(part: np.ndarray, scratch: np.ndarray) -> np.ndarray:
@@ -192,7 +192,7 @@ def test_meta_path_returns_empty_limbs_and_declares_its_cost():
         out = bank_row_count(limbs, keys)
     assert out.device.type == "meta" and out.shape == (1024, 2) and out.dtype == torch.int64
     assert seen.kernels == [("bank_row_count", 0, 4 * 3 * (1 << 10) + 32 * 1024)]
-    assert bank_row_count.launches == 0
+    assert launch_counts()["bank_row_count"] == 0
 
 
 def test_wrapper_checks_its_inputs():
@@ -221,7 +221,7 @@ def _on_card(limbs, keys):
     dev = torch.device("cuda")
     limbs, keys = limbs.to(dev), keys.to(dev)
     before = limbs.clone()
-    launches = bank_row_count.launches
+    launches = launch_counts()["bank_row_count"]
     torch.cuda.synchronize()
     obs_metrics.enable()
     obs_metrics.reset()
@@ -239,7 +239,7 @@ def _on_card(limbs, keys):
     assert torch.equal(got, want)
     assert torch.equal(limbs, before)
     if keys.numel():
-        assert bank_row_count.launches == launches + 1
+        assert launch_counts()["bank_row_count"] == launches + 1
         assert seen == {f"bank.counters.{bank_count_path(limbs.shape[0])}"}
     return seen
 
@@ -287,10 +287,10 @@ def test_banks_count_on_card_like_the_plain_counters():
             "CountMinBank": CountMinBank.empty(rows, CMConfig(4, 1024), dev),
         }
         for name, bank in banks.items():
-            launches = bank_row_count.launches
+            launches = launch_counts()["bank_row_count"]
             once = bank.update_many(k_t, x_t)
             twice = once.update_many(k_t, x_t)
-            assert bank_row_count.launches == launches + 2, name
+            assert launch_counts()["bank_row_count"] == launches + 2, name
             want = bank_row_count_plain(bank_row_count_plain(bank.n_items, k_t), k_t)
             assert torch.equal(twice.n_items, want), name
             np.testing.assert_array_equal(twice.counts, 2 * np.bincount(keys[(keys >= 0) & (keys < rows)],

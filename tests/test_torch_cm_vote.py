@@ -31,6 +31,7 @@ import torch
 
 from repro.sketch.countmin import CMConfig as RefCMConfig
 from repro.sketch.countmin import _label_update as ref_label_update
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.cm_vote import (
     BLOCK_SLOTS,
     HIST_TILES,
@@ -365,13 +366,13 @@ def test_meta_path_returns_empty_tables_and_declares_its_cost():
     cfg = CMConfig(4, 1024)
     tables = [torch.empty((1024, 4, 1024), dtype=torch.int32, device="meta") for _ in range(2)]
     keys = torch.empty(1 << 22, dtype=torch.int32, device="meta")
-    launches = cm_vote.launches
+    launches = launch_counts()["cm_vote"]
     with costs.collecting(Collector()) as seen:
         out_l, out_c = cm_vote(*tables, keys, keys, cfg)
     for out in (out_l, out_c):
         assert out.device.type == "meta" and out.shape == (1024, 4, 1024) and out.dtype == torch.int32
     assert seen.kernels == [("cm_vote", 0, 8 * (1 << 22) + 16 * 1024 * 4 * 1024)]
-    assert cm_vote.launches == launches
+    assert launch_counts()["cm_vote"] == launches
 
 
 def test_wrapper_checks_its_inputs():
@@ -401,12 +402,12 @@ def test_cpu_path_is_the_plain_vote():
     keys, items = _random_stream(2000, rows, 6, 30)
     labels, votes = _preset(keys, items, rows, cfg, seed=6)
     before = (labels.clone(), votes.clone())
-    launches = cm_vote.launches
+    launches = launch_counts()["cm_vote"]
     got = cm_vote(labels, votes, torch.from_numpy(keys), torch.from_numpy(items), cfg)
     want = _label_update(labels, votes, torch.from_numpy(keys), torch.from_numpy(items), cfg)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert torch.equal(labels, before[0]) and torch.equal(votes, before[1])
-    assert cm_vote.launches == launches
+    assert launch_counts()["cm_vote"] == launches
     # update_many votes through it: a bank's tick equals the plain vote
     bank = CountMinBank(torch.zeros_like(labels), labels, votes, torch.zeros((rows, 2), dtype=torch.int64), cfg)
     after = bank.update_many(keys, items)
@@ -431,7 +432,7 @@ def _on_card(labels, votes, keys, items, cfg):
     keys, items = torch.as_tensor(keys).to(dev), torch.as_tensor(items).to(dev)
     before = (labels.clone(), votes.clone())
     cm_vote(labels[:1], votes[:1], keys[:1], items[:1], cfg)  # built and loaded before the check below
-    launches = cm_vote.launches
+    launches = launch_counts()["cm_vote"]
     torch.cuda.synchronize()
     obs_metrics.enable()
     obs_metrics.reset()
@@ -447,7 +448,7 @@ def _on_card(labels, votes, keys, items, cfg):
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(labels, before[0]) and torch.equal(votes, before[1])
-    assert cm_vote.launches == launches + 1
+    assert launch_counts()["cm_vote"] == launches + 1
     plan = vote_plan(labels.shape[0], cfg.depth, cfg.width, keys.numel(), torch.cuda.get_device_properties(dev)
                      .multi_processor_count)
     assert seen == {"shared" if plan.shared else "global"}
@@ -544,9 +545,9 @@ def test_vote_on_card_matches_the_reference(name):
     """The kernel on the card against the reference's vote, JAX on the host."""
     _need_card()
     labels, votes, keys, items, cfg = _card_case(name)
-    launches = cm_vote.launches
+    launches = launch_counts()["cm_vote"]
     got_l, got_c = cm_vote(labels, votes, keys, items, cfg)
-    assert cm_vote.launches == launches + 1
+    assert launch_counts()["cm_vote"] == launches + 1
     want_l, want_c = _reference_vote(labels, votes, keys, items, cfg)
     assert torch.equal(got_l.cpu(), want_l) and torch.equal(got_c.cpu(), want_c)
 
@@ -558,11 +559,11 @@ def test_bank_ticks_on_card_vote_like_the_plain_vote():
     rows, cfg = 1024, CMConfig(4, 1024)
     bank = CountMinBank.empty(rows, cfg, dev)
     labels, votes = bank.labels, bank.label_counts
-    launches = cm_vote.launches
+    launches = launch_counts()["cm_vote"]
     for tick in range(3):
         keys, items = _random_stream(1 << 20, rows, 40 + tick, 5000)
         k, x = torch.from_numpy(keys).to(dev), torch.from_numpy(items).to(dev)
         bank = bank.update_many(k, x)
         labels, votes = _label_update(labels, votes, k, x, cfg)
         assert torch.equal(bank.labels, labels) and torch.equal(bank.label_counts, votes)
-    assert cm_vote.launches == launches + 3
+    assert launch_counts()["cm_vote"] == launches + 3

@@ -19,6 +19,7 @@ from repro.sketch import hll as ref_hll
 from repro.sketch import murmur3 as ref_murmur3
 from repro.sketch.hll import HLLConfig as RefConfig
 from repro_torch.kernels import hash_rank as port_kernel
+from repro_torch.kernels import launch_counts
 from repro_torch.sketch import hll, murmur3
 from repro_torch.sketch.hll import HLLConfig
 
@@ -91,9 +92,9 @@ def test_hash_index_rank_matches_reference(p, hash_bits):
 def test_plain_hash_rank_matches_reference_kernel(p, hash_bits):
     items = _items(3000, p + hash_bits)  # ragged: no multiple of the TPU tile
     cfg = HLLConfig(p=p, hash_bits=hash_bits, seed=2**32 + 7)
-    before = port_kernel.hash_rank.launches
+    before = launch_counts()["hash_rank"]
     idx, rank = port_kernel.hash_rank(_t(items), cfg)
-    assert port_kernel.hash_rank.launches == before  # a CPU tensor never launches
+    assert launch_counts()["hash_rank"] == before  # a CPU tensor never launches
     ridx, rrank = ref_backends.hash_rank(
         jnp.asarray(items), RefConfig(p=p, hash_bits=hash_bits, seed=2**32 + 7), interpret=True
     )
@@ -113,11 +114,11 @@ def test_hash_rank_wrapper_validates_items(monkeypatch):
         raise AssertionError("the plain version ran")
 
     monkeypatch.setattr(port_kernel, "hash_rank_plain", plain)
-    launches = port_kernel.hash_rank.launches
+    launches = launch_counts()["hash_rank"]
     idx, rank = port_kernel.hash_rank(torch.zeros(4, dtype=torch.int32, device="meta"), cfg)
     assert (idx.device.type, idx.shape, idx.dtype) == ("meta", (4,), torch.int32)
     assert (rank.device.type, rank.shape, rank.dtype) == ("meta", (4,), torch.int32)
-    assert port_kernel.hash_rank.launches == launches
+    assert launch_counts()["hash_rank"] == launches
     with pytest.raises(ValueError, match="CUDA tensors"):
         port_kernel._build.require_cuda(torch.zeros(4, dtype=torch.int32, device="meta"))
 
@@ -129,9 +130,9 @@ def test_hash_rank_kernel_matches_plain_on_card():
     for p, hash_bits in ((4, 64), (14, 32), (16, 64)):
         cfg = HLLConfig(p=p, hash_bits=hash_bits, seed=2**64 - 1)
         x = _t(_items((1 << 20) + 3, p)).cuda()
-        before = port_kernel.hash_rank.launches
+        before = launch_counts()["hash_rank"]
         idx, rank = port_kernel.hash_rank(x, cfg)
-        assert port_kernel.hash_rank.launches == before + 1
+        assert launch_counts()["hash_rank"] == before + 1
         pidx, prank = port_kernel.hash_rank_plain(x, cfg)
         torch.testing.assert_close(idx, pidx, rtol=0, atol=0)
         torch.testing.assert_close(rank, prank, rtol=0, atol=0)

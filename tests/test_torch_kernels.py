@@ -57,7 +57,7 @@ from repro.sketch.backends import cm_update_jnp, cm_window_fold, cm_window_fold_
 from repro.sketch.countmin import CMConfig as RefCMConfig
 from repro.sketch.hll import HLLConfig as RefConfig
 from repro_torch.kernels import bank_scatter, bucket_fold, cm_scatter, hll_fused, rwkv_intra, sparse_scatter
-from repro_torch.kernels import window_fold
+from repro_torch.kernels import launch_counts, window_fold
 from repro_torch.sketch import hll
 from repro_torch.sketch.countmin import CMConfig
 from repro_torch.sketch.hll import HLLConfig
@@ -925,9 +925,9 @@ def test_rwkv_intra_validates_shapes_and_types():
         rwkv_intra.rwkv_intra(r[0], k[0], v[0], lex[0], lcum[0], u[0])
     with pytest.raises(TypeError, match="floating point"):
         rwkv_intra.rwkv_intra(r, k.to(torch.int32), v, lex, lcum, u)
-    before = rwkv_intra.rwkv_intra.launches
+    before = launch_counts()["rwkv_intra"]
     rwkv_intra.rwkv_intra(r, k, v, lex, lcum, u)  # CPU tensors: the plain version, no launch
-    assert rwkv_intra.rwkv_intra.launches == before
+    assert launch_counts()["rwkv_intra"] == before
 
 
 # ----------------------------------------------------------------------------
@@ -943,9 +943,9 @@ def test_hll_update_fused_kernel_matches_plain_on_card():
         regs = torch.from_numpy(_registers(cfg, p)).cuda()
         x = _t(_u32((1 << 21) + 5, p)).cuda()
         for n_valid in (None, 1000):
-            before = hll_fused.hll_update_fused.launches
+            before = launch_counts()["hll_update_fused"]
             got = hll_fused.hll_update_fused(regs, x, n_valid, cfg)
-            assert hll_fused.hll_update_fused.launches == before + 1
+            assert launch_counts()["hll_update_fused"] == before + 1
             want = hll_fused.hll_update_fused_plain(regs, x, n_valid, cfg)
             torch.testing.assert_close(got, want, rtol=0, atol=0)
 
@@ -956,9 +956,9 @@ def test_bucket_fold_kernel_matches_plain_on_card():
     rng = np.random.default_rng(0)
     for k, m, dtype in ((8, 1 << 16, np.uint8), (3, 20, np.uint8), (5, 1001, np.int32)):
         partials = torch.from_numpy(rng.integers(0, 60, (k, m)).astype(dtype)).cuda()
-        before = bucket_fold.bucket_fold.launches
+        before = launch_counts()["bucket_fold"]
         got = bucket_fold.bucket_fold(partials)
-        assert bucket_fold.bucket_fold.launches == before + 1
+        assert launch_counts()["bucket_fold"] == before + 1
         torch.testing.assert_close(got, bucket_fold.bucket_fold_plain(partials), rtol=0, atol=0)
 
 
@@ -987,9 +987,9 @@ def test_bank_scatter_max_kernel_matches_plain_on_card():
     keys, idx, rank, _ = _keyed_stream(1 << 20, rows, cfg, 3)
     bank = torch.from_numpy(np.stack([_registers(cfg, r) for r in range(rows)])).cuda()
     args = [torch.from_numpy(a).cuda() for a in (keys, idx, rank)]
-    before = bank_scatter.bank_scatter_max.launches
+    before = launch_counts()["bank_scatter_max"]
     got = bank_scatter.bank_scatter_max(bank, *args)
-    assert bank_scatter.bank_scatter_max.launches == before + 1
+    assert launch_counts()["bank_scatter_max"] == before + 1
     torch.testing.assert_close(got, bank_scatter.bank_scatter_max_plain(bank, *args), rtol=0, atol=0)
 
 
@@ -1047,9 +1047,9 @@ def test_bank_scatter_max_adversarial_streams_on_card():
         assert fits == (not name.startswith("m=")), name
         if not fits:
             assert bank_scatter.bank_scatter_path(rows, m, len(keys), sms) == "global", name
-        count = bank_scatter.bank_scatter_max.launches
+        count = launch_counts()["bank_scatter_max"]
         torch.testing.assert_close(bank_scatter.bank_scatter_max(bank, *args), want, rtol=0, atol=0, msg=name)
-        assert bank_scatter.bank_scatter_max.launches == count + (len(keys) > 0), name
+        assert launch_counts()["bank_scatter_max"] == count + (len(keys) > 0), name
         # both paths, where the tiled one's limits allow it
         torch.testing.assert_close(bank_scatter.bank_scatter_max_global(bank, *args), want, rtol=0, atol=0, msg=name)
         if fits:
@@ -1066,9 +1066,9 @@ def test_sparse_scatter_coo_kernel_matches_plain_on_card():
     _need_card()
     for p, rows, n in ((4, 37, 127), (12, 2048, 1 << 20), (16, 17, (1 << 20) + 3)):
         args = [torch.from_numpy(a).cuda() for a in _triples(n, rows, 1 << p, p)]
-        before = sparse_scatter.sparse_scatter_coo.launches
+        before = launch_counts()["sparse_scatter_coo"]
         got = sparse_scatter.sparse_scatter_coo(*args, rows, 1 << p)
-        assert sparse_scatter.sparse_scatter_coo.launches == before + 1
+        assert launch_counts()["sparse_scatter_coo"] == before + 1
         want = sparse_scatter.sparse_scatter_coo_plain(*args, rows, 1 << p)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
@@ -1125,9 +1125,9 @@ def test_window_fold_max_kernel_matches_plain_on_card():
     ring = torch.from_numpy(_ring(16, 64, 1 << 12, 2)).cuda()
     for live in (16, 4, 0):
         mask = (torch.arange(16) >= 16 - live).cuda()
-        before = window_fold.window_fold_max.launches
+        before = launch_counts()["window_fold_max"]
         got = window_fold.window_fold_max(ring, mask)
-        assert window_fold.window_fold_max.launches == before + 1
+        assert launch_counts()["window_fold_max"] == before + 1
         torch.testing.assert_close(got, window_fold.window_fold_max_plain(ring, mask), rtol=0, atol=0)
 
 
@@ -1135,9 +1135,9 @@ def test_window_fold_max_kernel_matches_plain_on_card():
 def test_window_merge_max_kernel_matches_plain_on_card():
     _need_card()
     parts = torch.from_numpy(_ring(3, 1024, 1 << 12, 3)).cuda()
-    before = window_fold.window_merge_max.launches
+    before = launch_counts()["window_merge_max"]
     got = window_fold.window_merge_max(parts)
-    assert window_fold.window_merge_max.launches == before + 1
+    assert launch_counts()["window_merge_max"] == before + 1
     torch.testing.assert_close(got, window_fold.window_merge_max_plain(parts), rtol=0, atol=0)
 
 
@@ -1148,9 +1148,9 @@ def test_cm_scatter_add_kernel_matches_plain_on_card():
         cfg = CMConfig(depth, width, seed=7)
         keys, items = (torch.from_numpy(a).cuda() for a in _cm_stream(n, rows, width))
         counters = torch.from_numpy(_near_wrap((rows, depth, width), n).view(np.int32)).cuda()
-        before = cm_scatter.cm_scatter_add.launches
+        before = launch_counts()["cm_scatter_add"]
         got = cm_scatter.cm_scatter_add(counters, keys, items, cfg)
-        assert cm_scatter.cm_scatter_add.launches == before + 1
+        assert launch_counts()["cm_scatter_add"] == before + 1
         torch.testing.assert_close(got, cm_scatter.cm_scatter_add_plain(counters, keys, items, cfg), rtol=0, atol=0)
 
 
@@ -1196,10 +1196,10 @@ def test_cm_scatter_add_adversarial_streams_on_card():
     # the global path at the main config
     keys, items = (torch.from_numpy(a).cuda() for a in _cm_stream((1 << 20) + 1, 1024, 5))
     want = cm_scatter.cm_scatter_add_plain(counters, keys, items, CMConfig(4, 1024))
-    before = cm_scatter.cm_scatter_add.launches
+    before = launch_counts()["cm_scatter_add"]
     torch.testing.assert_close(cm_scatter.cm_scatter_add_global(counters, keys, items, CMConfig(4, 1024)), want,
                                rtol=0, atol=0)
-    assert cm_scatter.cm_scatter_add.launches == before + 1
+    assert launch_counts()["cm_scatter_add"] == before + 1
 
 
 @pytest.mark.gpu
@@ -1229,9 +1229,9 @@ def test_cm_window_fold_sum_kernel_matches_plain_on_card():
         ring = torch.from_numpy(_near_wrap((window, rows, depth, width), window).view(np.int32)).cuda()
         for live in sorted({window, max(window // 4, 1), 0}):
             mask = (torch.arange(window) >= window - live).cuda()
-            before = cm_scatter.cm_window_fold_sum.launches
+            before = launch_counts()["cm_window_fold_sum"]
             got = cm_scatter.cm_window_fold_sum(ring, mask)
-            assert cm_scatter.cm_window_fold_sum.launches == before + 1
+            assert launch_counts()["cm_window_fold_sum"] == before + 1
             torch.testing.assert_close(got, cm_scatter.cm_window_fold_sum_plain(ring, mask), rtol=0, atol=0)
 
 
@@ -1243,10 +1243,10 @@ def test_rwkv_intra_kernel_matches_plain_on_card():
     cases += [((64, 64, 64), 50.0), ((2, 32, 32), 50.0), ((5120, 64, 64), 50.0), ((2, 17, 7), 50.0)]
     for (g, c, n), decay in cases:
         args = [torch.from_numpy(a).cuda() for a in _intra_inputs(g, c, n, seed=c * n, decay_scale=decay)]
-        before = rwkv_intra.rwkv_intra.launches
+        before = launch_counts()["rwkv_intra"]
         got = rwkv_intra.rwkv_intra(*args)
         torch.cuda.synchronize()
-        assert rwkv_intra.rwkv_intra.launches == before + 1
+        assert launch_counts()["rwkv_intra"] == before + 1
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, rwkv_intra.rwkv_intra_plain(*args), **INTRA_TOL)
     wide = [torch.from_numpy(a).cuda() for a in _intra_inputs(2, 65, 8)]

@@ -32,7 +32,7 @@ from repro.models import common as ref_common
 from repro.models import transformer as ref_transformer
 from repro.serve import engine as ref_engine
 from repro_torch import configs, interop
-from repro_torch.kernels import rwkv_intra
+from repro_torch.kernels import launch_counts, rwkv_intra
 from repro_torch.models import common, rwkv6, transformer
 from repro_torch.serve import engine
 
@@ -201,9 +201,9 @@ def test_prefill_on_card_goes_through_the_kernel():
     before = common.ACT_DTYPE
     common.ACT_DTYPE = torch.float32
     try:
-        launches = rwkv_intra.rwkv_intra.launches
+        launches = launch_counts()["rwkv_intra"]
         got, got_cache = engine.prefill(model, batch, arch, S + 1)
-        assert rwkv_intra.rwkv_intra.launches == launches + arch.n_layers
+        assert launch_counts()["rwkv_intra"] == launches + arch.n_layers
         real = rwkv6.rwkv_intra
         rwkv6.rwkv_intra = rwkv_intra.rwkv_intra_plain
         try:

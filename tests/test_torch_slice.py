@@ -32,7 +32,7 @@ from repro.sketch import SketchBank as RefBank
 from repro.sketch import WindowedBank as RefRing
 from repro.sketch.hll import HLLConfig as RefConfig
 from repro_torch import HLLConfig, HybridBank, HyperLogLog, SketchBank, WindowedBank
-from repro_torch.kernels import launch_counts, reset_launches
+from repro_torch.kernels import KERNELS, launch_counts, reset_launches
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -95,7 +95,7 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
                                     intra_shapes=((3, 64, 8), (2, 1, 16)), intra_strong=((2, 16, 8),),
                                     intra_bwd_shapes=((3, 16, 8), (2, 1, 16)), intra_bwd_strong=((2, 16, 8),),
                                     intra_bwd_underflow=((2, 9, 8),), intra_bwd_zero_dy=((2, 16, 8),))
-    assert set(errs) == set(chip_smoke.KERNEL_SOURCES) and max(errs.values()) == 0.0
+    assert set(errs) == set(KERNELS) and max(errs.values()) == 0.0
     stream = chip_smoke.phase_stream("cpu", chunks=2, chunk_items=1 << 11, configs=((10, 64),), pipelines=3)
     assert stream["items"] == 1 << 12 and len(stream["configs"]) == 1
     bank = chip_smoke.phase_bank("cpu", rows=13, ticks=2, tick_items=1 << 11, p=8)
@@ -115,7 +115,7 @@ def test_chip_smoke_phases_rehearse_on_the_cpu():
                                    p=6, depth=2, width=32)
     assert board["flat"]["items_seen"] == 4 << 10 and board["windowed"]["streams_reported"] <= 9
     # on the CPU the wrappers run their plain versions and never count a launch
-    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+    assert launch_counts() == {name: 0 for name in KERNELS}
 
 
 def test_chip_smoke_serve_phase_rehearses_on_the_cpu():
@@ -154,7 +154,7 @@ def test_chip_smoke_launch_and_obs_phases_rehearse_on_the_cpu(tmp_path):
     # the passthrough arm put the wrapped backends and record sites back
     assert hasattr(chip_smoke.SketchBank, "update_many") and metrics.inc.__module__ == metrics.__name__
     # on the CPU the wrappers run their plain versions and never count a launch
-    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+    assert launch_counts() == {name: 0 for name in KERNELS}
 
 
 def test_chip_smoke_placement_and_attn_serve_phases_rehearse_on_the_cpu(tmp_path):
@@ -179,7 +179,7 @@ def test_chip_smoke_placement_and_attn_serve_phases_rehearse_on_the_cpu(tmp_path
     assert max(errs["f32 swa"].values()) <= chip_smoke.ATTN_F32_ATOL
     assert attn["batcher"]["tokens"] == 24 and attn["batcher"]["worst_gap"] <= chip_smoke.ATTN_BATCH_TIE
     # on the CPU the wrappers run their plain versions and never count a launch
-    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+    assert launch_counts() == {name: 0 for name in KERNELS}
 
 
 def test_chip_smoke_family_serve_phase_rehearses_on_the_cpu(tmp_path):
@@ -202,7 +202,7 @@ def test_chip_smoke_family_serve_phase_rehearses_on_the_cpu(tmp_path):
     assert family["legs"]["recurrentgemma-9b"]["scan_float64"]["tokens"] == 300
     assert {row["tokens"] for row in family["batcher"].values()} == {24}
     # on the CPU the wrappers run their plain versions and never count a launch
-    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+    assert launch_counts() == {name: 0 for name in KERNELS}
 
 
 def test_chip_smoke_train_phase_rehearses_on_the_cpu(tmp_path):
@@ -222,7 +222,7 @@ def test_chip_smoke_train_phase_rehearses_on_the_cpu(tmp_path):
     assert train["checkpoint"]["resumed_equal"] and train["checkpoint"]["leaves"] > 0
     assert not list(tmp_path.glob("train_ckpt/*"))
     # on the CPU the wrappers run their plain versions and never count a launch
-    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+    assert launch_counts() == {name: 0 for name in KERNELS}
 
 
 def test_chip_smoke_examples_phase_rehearses_on_the_cpu(monkeypatch):
@@ -252,7 +252,7 @@ def test_chip_smoke_examples_phase_rehearses_on_the_cpu(monkeypatch):
     assert out["elastic_rescale"]["step"] == 4 and out["elastic_rescale"]["registers_equal"]
     # every checkpoint directory the phase made is gone; on the CPU no launch counts
     assert len(made) == 4 and not any(os.path.exists(d) for d in made)
-    assert launch_counts() == {name: 0 for name in chip_smoke.KERNEL_SOURCES}
+    assert launch_counts() == {name: 0 for name in KERNELS}
 
 
 def test_chip_smoke_zipf_flip_rule_catches_a_flip_off_a_boundary():

@@ -507,10 +507,10 @@ def test_intra_bwd_kernel_matches_plain_on_card(shape):
         dy = np.zeros_like(dy)
     ug = np.tile(u[None], (b * nc, 1, 1)).reshape(-1, n)
     ins = [torch.from_numpy(x).to(dev) for x in (r, k, v, lex, lcum, ug, dy)]
-    before = intra_lib.rwkv_intra_bwd.launches
+    before = launch_counts()["rwkv_intra_bwd"]
     got = intra_lib.rwkv_intra_bwd(*ins)
     torch.cuda.synchronize()
-    assert intra_lib.rwkv_intra_bwd.launches == before + 1
+    assert launch_counts()["rwkv_intra_bwd"] == before + 1
     oracle = intra_lib.rwkv_intra_bwd_plain(*(t.double() for t in ins))
     plain = intra_lib.rwkv_intra_bwd_plain(*ins)
     for name, gt, pt, wt in zip(("r", "k", "v", "lex", "lcum", "u"), got, plain, oracle):
