@@ -13,7 +13,7 @@ checkout's, so that two trees are measured by the same code: run parent,
 change, change, parent in one call to compare them.  Phases, each of which
 raises (exit code 1) when it fails:
 
-  build    compile the thirteen kernels (eleven sources) from
+  build    compile the fourteen kernels (twelve sources) from
            src/repro_torch/kernels/csrc with nvcc, one process per source,
            all at once; print the seconds and ptxas's register,
            shared-memory and spill report.
@@ -68,7 +68,12 @@ raises (exit code 1) when it fails:
            1000, 1024, 2^16}, n in {2^22 + 3, 1, 127}, Zipf(1.2) items with the
            int32 limits among them, onto random int32 tables, and on one key
            and one item taking every entry and on only dropped keys,
-           printing the cells each case sent down the cooperative path.
+           printing the cells each case sent down the cooperative path;
+           hll_estimate against its plain version (register_histogram_plain,
+           _original_device) at p in {4, 12, 16} x H in {32, 64}: a bank
+           fed Zipf(1.2)-keyed items with all-zero, saturated, one-rank and
+           corrupt rows added, one (m,) sketch, and rows off a 16-byte
+           boundary; the counts bit for bit, the estimates within 1e-6.
   stream   the paper's NIC deployment (Tab. IV), lengthened: 2^26 uint32
            items in 16 chunks of 2^22 through ``update_registers`` under
            "cuda" and "cuda_pipelined" (k = 8), for (p, H) in
@@ -310,7 +315,10 @@ raises (exit code 1) when it fails:
            their global paths (the previous designs), and bank_scatter_max
            on both paths at each caller's shape and at banks of 16, 32 and
            48 MiB, on random registers and on the registers one update
-           leaves (the numbers of bank_scatter.py's path rule).
+           leaves (the numbers of bank_scatter.py's path rule);
+           hll_estimate's "original" read at the fleet's (1024, 4096) bank
+           and, beside it, at a (1, 65536) sketch, each against the plain
+           read (wall clock: its bincount reads back to the host).
   profile  torch.profiler over a few stream chunks, bank ticks (local and
            over 4 row blocks) and their bank_scatter_max alone, hybrid
            ticks, full-window reads, count-min ticks, their label votes
@@ -403,6 +411,10 @@ try:  # a tree from before the vote's kernel (--src) has no cm_vote
     from repro_torch.kernels import cm_vote as vote_module  # noqa: E402
 except ImportError:
     vote_module = None
+try:  # a tree from before the estimate's kernel (--src) has no hll_estimate
+    from repro_torch.kernels import hll_estimate as estimate_module  # noqa: E402
+except ImportError:
+    estimate_module = None
 from repro_torch.kernels.rwkv_intra import (  # noqa: E402
     rwkv_intra,
     rwkv_intra_bwd,
@@ -515,7 +527,10 @@ SPREAD_ROUNDS = 5
 # whose plain and library calls read back to the host (torch.bincount, the
 # plain vote's unique_consecutive): timed by the synchronized wall clock
 # (_wall_ms)
-HOST_READS = ("bank_row_count", "cm_vote")
+HOST_READS = ("bank_row_count", "cm_vote", "hll_estimate")
+# hll_estimate's estimates against the plain finalize: its harmonic sum is
+# float64 rounded once, the plain one a float32 matrix-vector product
+ESTIMATE_RTOL = 1e-6
 PROFILE_ATTEMPTS = 3  # recordings of a profile step before its partial one is reported
 # profiled only when --profile names them: a full-width train step launches
 # ~10^5 kernels, and their recording took 399 s of a call (NVIDIA H100 80GB
@@ -868,6 +883,56 @@ def _vote_cases(device, n: int, rows: int, rng: np.random.Generator) -> float:
     return err
 
 
+def _plain_estimate(registers: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
+    """The plain "original" read that hll_estimate replaces on the card:
+    register_histogram_plain's bincount, then _original_device."""
+    from repro_torch.sketch.estimators import _original_device, register_histogram_plain
+
+    return _original_device(register_histogram_plain(registers, cfg).to(torch.float32), cfg)
+
+
+def _estimate_cases(device, n: int, rows: int, rng: np.random.Generator) -> float:
+    """hll_estimate (the estimators' read, which launches it for a uint8
+    bank on the card) against its plain version at p in {4, 12, 16} x H in
+    {32, 64}: a bank of ``rows`` rows fed n Zipf(1.2)-keyed items,
+    with an all-zero, a saturated, a one-rank (E past 2^32 / 30 where H =
+    32) and a corrupt row (values past max_rank) added; one (m,) sketch;
+    the bank off a 16-byte boundary.  The counts bit for bit (returns their
+    max abs err), the "original" estimates within ESTIMATE_RTOL with the
+    same infinities (prints the widest relative gap)."""
+    from repro_torch.sketch import estimators
+
+    keys, items = _zipf_keyed(rows, n, rng)
+    k_t, x_t = torch.from_numpy(keys).to(device), torch.from_numpy(items).to(device)
+    err, gaps = 0.0, {}
+    for p in (4, 12, 16):
+        for hash_bits in (32, 64):
+            cfg = HLLConfig(p=p, hash_bits=hash_bits)
+            fed = SketchBank.empty(rows, cfg, device).update_many(k_t, x_t).registers
+            corrupt = fed[0].clone()
+            corrupt[::7] = torch.randint(cfg.max_rank + 1, 256, corrupt[::7].shape, dtype=torch.uint8, device=device)
+            special = torch.stack([torch.zeros_like(fed[0]), torch.full_like(fed[0], cfg.max_rank),
+                                   torch.full_like(fed[0], min(cfg.max_rank, 29 - p)), corrupt])
+            bank = torch.cat([fed, special])
+            flat = torch.cat([bank.reshape(-1), bank[0]])
+            cases = {"bank": bank, "one sketch": bank[0], "offset 1": flat[1: 1 + bank.numel()].view(bank.shape)}
+            for what, regs in cases.items():
+                what = f"hll_estimate p={p} H={hash_bits} {what}"
+                want = estimators.register_histogram_plain(regs, cfg)
+                err = max(err, _max_abs_err(estimators.register_histogram(regs, cfg), want, what))
+                got = estimators.estimate_many(regs, cfg, "original").double()
+                plain = estimators._original_device(want.to(torch.float32), cfg).double()
+                if not torch.equal(torch.isinf(got), torch.isinf(plain)):
+                    raise AssertionError(f"{what}: the estimates' infinities differ")
+                live = torch.isfinite(plain)
+                gap = float(((got - plain).abs() / plain.abs().clamp_min(1e-30))[live].max()) if live.any() else 0.0
+                if gap > ESTIMATE_RTOL:
+                    raise AssertionError(f"{what}: estimates {gap} from the plain version, beyond {ESTIMATE_RTOL}")
+                gaps[what] = gap
+    print(f"[kernels] hll_estimate counts bit-identical; widest relative gap of the estimates: {max(gaps.values())}")
+    return err
+
+
 def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREAM_CONFIGS,
                   hybrid_rows: int = HYBRID_ROWS, window: int = WINDOW, cm_cells: int = CM_CELL_CAP,
                   intra_shapes=INTRA_SHAPES, intra_strong=INTRA_STRONG, intra_bwd_shapes=INTRA_BWD_SHAPES,
@@ -971,6 +1036,7 @@ def phase_kernels(device, n: int = 1 << 22, rows: int = BANK_ROWS, configs=STREA
     errs["bank_scatter_max"] = max(errs["bank_scatter_max"], _bank_cases(device, n, rows, rng))
     errs["bank_row_count"] = _row_count_cases(device, n, rows, hybrid_rows, rng)
     errs["cm_vote"] = _vote_cases(device, n, rows, rng)
+    errs["hll_estimate"] = _estimate_cases(device, n, rows, rng)
     for p in (4, 8, 12, 16):
         m = 1 << p
         srows = hybrid_rows if p <= 12 else rows
@@ -3861,6 +3927,18 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
             None,
             8 * n + 16 * cm_labels.numel(),
         )
+    if estimate_module is not None:
+        # hll_estimate at the dashboard's read: "original" over the fleet's
+        # (1024, 4096) bank after one Zipf(1.2)-keyed update; no one PyTorch
+        # call computes it
+        fleet_cfg = HLLConfig(p=12, hash_bits=64)
+        fleet = [(SketchBank.empty(rows, fleet_cfg, device).update_many(k_t, _items_tensor(items, device)).registers,)]
+        calls["hll_estimate"] = (
+            (lambda r: estimate_module.hll_estimate(r, fleet_cfg, "original"), fleet),
+            (lambda r: _plain_estimate(r, fleet_cfg), fleet),
+            None,
+            fleet[0][0].numel() + 4 * rows,
+        )
     if count_module is not None:
         calls["bank_row_count"] = (
             (lambda k: count_module.bank_row_count(count_limbs, k), count_streams),
@@ -3918,6 +3996,17 @@ def phase_timing(device, n: int = 1 << 22, rows: int = BANK_ROWS, hybrid_rows: i
         variants.update(_bank_path_times(device, rows, n, rng))
     if (only is None or "bank_row_count" in only) and count_module is not None:
         variants.update(_row_count_times(device, rows, hybrid_rows, count_streams, rng))
+    if (only is None or "hll_estimate" in only) and estimate_module is not None:
+        # a p = 16 sketch (HyperLogLog.estimate_device, the train step's
+        # tap): one block of 512 threads
+        from repro_torch.sketch import hll
+
+        c16 = HLLConfig(p=16, hash_bits=64)
+        sketch = [(hll.update(hll.init_registers(c16, device), streams[0][0], c16).reshape(1, -1),)]
+        variants["hll_estimate (1, 65536)"] = _time_ms(lambda r: estimate_module.hll_estimate(r, c16, "original"),
+                                                       sketch)[0]
+        variants["hll_estimate plain (1, 65536)"] = _wall_ms(
+            lambda r: _plain_estimate(r, c16), sketch)[0]
     if variants:
         print(f"[timing] variants, device ms: {json.dumps(variants)}")
         out["variants"] = variants

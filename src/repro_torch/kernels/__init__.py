@@ -54,6 +54,11 @@ KERNELS = {
     # lengths and two segment_max)
     "cm_vote": Kernel("cm_vote", "cm_vote", "cm_vote",
                       "src/repro/sketch/countmin.py:211 (_label_update, the Topkapi vote)"),
+    # no Pallas kernel: the reference histograms with jnp.bincount and
+    # finalizes in plain JAX
+    "hll_estimate": Kernel("hll_estimate", "hll_estimate", "hll_estimate",
+                           "src/repro/sketch/estimators.py:84 (jnp.bincount register histogram) and :209 "
+                           "(_original_device)"),
 }
 
 

@@ -1,9 +1,8 @@
 """Pluggable cardinality estimators over the register histogram (phase 4).
 
 Port of ``repro/sketch/estimators.py``.  Every estimator consumes the
-register histogram C[k] = |{j : M[j] = k}| (length max_rank + 1), computed
-with one ``torch.bincount`` (no kernel of its own: the reference leaves it
-to XLA), and ships two finalizers:
+register histogram C[k] = |{j : M[j] = k}| (length max_rank + 1), and ships
+two finalizers:
 
   host    (np int histogram, cfg) -> python float; exact float64/bignum
           arithmetic -- the authoritative path, the reference's code as is.
@@ -15,6 +14,14 @@ to XLA), and ships two finalizers:
 Registered: ``original`` (Flajolet + the paper's empirical corrections),
 ``ertl_improved`` (arXiv:1702.01284 Alg. 6) and ``ertl_mle`` (Poisson
 maximum likelihood by bisection).  See DESIGN.md §8.
+
+A uint8 bank on the card is read by one launch of the ``hll_estimate``
+kernel (``repro_torch.kernels.hll_estimate``; the reference leaves the
+histogram to XLA's ``bincount``), with no read to the host: it writes the
+"original" estimates itself, and the counts that every other estimator's
+device finalizer takes.  CPU tensors, and other register dtypes, keep the
+plain ``register_histogram_plain`` (one ``torch.bincount``) and
+``_original_device``, which the kernel's tests hold it to.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import hll_estimate as _kernel
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing
 from repro_torch.sketch.hll import HLLConfig, alpha
@@ -71,13 +79,25 @@ def histogram_size(cfg: HLLConfig) -> int:
 def register_histogram(registers: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
     """Device histogram: (..., m) registers -> (..., K) int32 counts.
 
-    One bincount for the whole (possibly batched) bank: batch b's registers
-    are offset by b*K.  A register value beyond max_rank (possible only via
-    a corrupted blob) is routed to a trailing bin that is dropped, so it can
-    never leak a count into a neighboring batch; the host path raises on
-    the same input.  On ``meta`` tensors (the dry-run's training step),
-    where bincount has no kernel (its output length depends on the data),
-    the counts are an empty tensor of their shape.
+    A uint8 bank on the card (or on ``meta``) takes the ``hll_estimate``
+    kernel, every other bank :func:`register_histogram_plain`.  A register
+    value beyond max_rank (possible only via a corrupted blob) counts
+    nowhere, never in a neighboring batch; the host path raises on the
+    same input.
+    """
+    validate_registers(registers, cfg, batched=True)
+    if _kernel.kernel_takes(registers.device, registers.dtype):
+        return _kernel.hll_estimate(registers, cfg, "histogram")
+    return register_histogram_plain(registers, cfg)
+
+
+def register_histogram_plain(registers: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
+    """The plain histogram: one bincount for the whole (possibly batched)
+    bank, batch b's registers offset by b*K.  A register value beyond
+    max_rank is routed to a trailing bin that is dropped.  On ``meta``
+    tensors (the dry-run's training step), where bincount has no kernel
+    (its output length depends on the data), the counts are an empty
+    tensor of their shape.
     """
     validate_registers(registers, cfg, batched=True)
     k = histogram_size(cfg)
@@ -461,6 +481,8 @@ def _estimate_device(
     registers: torch.Tensor, cfg: HLLConfig, estimator: str
 ) -> torch.Tensor:
     with tracing.region("sketch.estimate.histogram"):
+        if estimator in _kernel.FINALIZED and _kernel.kernel_takes(registers.device, registers.dtype):
+            return _kernel.hll_estimate(registers, cfg, estimator)  # the launch finalizes too
         counts = register_histogram(registers, cfg).to(torch.float32)
     with tracing.region("sketch.estimate.finalize"):
         return get_estimator(estimator).device(counts, cfg)

@@ -265,8 +265,9 @@ def _lc_estimate(sparse_len: torch.Tensor, m: int) -> torch.Tensor:
     """Closed-form LinearCounting over per-row distinct counts.
 
     The same float32 operations as the small-range branch of the dense
-    device finalizer (``estimators._original_device``), so a sparse row's
-    estimate is bit-identical to the dense path's on the card.
+    device finalizer (``estimators._original_device``, and the
+    ``hll_estimate`` kernel's on the card), so a sparse row's estimate is
+    bit-identical to the dense path's on the card.
     """
     from repro_torch.sketch.estimators import _over
 

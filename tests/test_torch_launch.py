@@ -97,7 +97,7 @@ def test_a_launch_counts_once_and_declares_its_cost_once_and_a_refused_one_neith
 
 def test_the_kernel_table_names_every_source_wrapper_and_replaced_entry():
     assert sorted({kernel.source for kernel in KERNELS.values()}) == list(_build.SOURCES)
-    assert len(_build.SOURCES) == 11 and len(KERNELS) == 13
+    assert len(_build.SOURCES) == 12 and len(KERNELS) == 14
     for name, fn in wrappers().items():
         assert fn.__name__ == KERNELS[name].wrapper == name
         assert not hasattr(fn, "launches"), name
